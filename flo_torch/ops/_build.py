@@ -16,6 +16,7 @@ import pathlib
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "flo_torch"
@@ -75,8 +76,11 @@ def build(name: str) -> pathlib.Path:
 
 
 def build_all() -> list[pathlib.Path]:
-    """Build every kernel source of the package."""
-    return [build(p.stem) for p in sources()]
+    """Build every kernel source of the package, one ``nvcc`` per source, all
+    started together."""
+    names = [p.stem for p in sources()]
+    with ThreadPoolExecutor(max(len(names), 1)) as pool:
+        return list(pool.map(build, names))
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -86,3 +90,16 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _libs[name] = ctypes.CDLL(str(build(name)))
         return lib
+
+
+def check_tensor(name: str, t, dtype, shape: tuple, device) -> None:
+    """Raise unless ``t`` is a contiguous tensor of ``dtype`` and ``shape`` on
+    ``device``: what a kernel's C entry point takes on trust."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

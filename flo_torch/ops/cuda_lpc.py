@@ -14,6 +14,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._build import check_tensor
 from .lpc import MAX_ORDER
 
 #: Kernel launches made by :func:`reconstruct_cuda` in this process.
@@ -26,17 +27,6 @@ def _kernel():
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def reconstruct_cuda(residuals, coeffs, shifts, orders, is_fixed) -> torch.Tensor:
@@ -54,11 +44,11 @@ def reconstruct_cuda(residuals, coeffs, shifts, orders, is_fixed) -> torch.Tenso
     if residuals.dim() != 2:
         raise ValueError(f"residuals must be [L, S], got shape {tuple(residuals.shape)}")
     L, S = residuals.shape
-    _check("residuals", residuals, torch.int32, (L, S), dev)
-    _check("coeffs", coeffs, torch.int32, (L, MAX_ORDER), dev)
-    _check("shifts", shifts, torch.int32, (L,), dev)
-    _check("orders", orders, torch.int32, (L,), dev)
-    _check("is_fixed", is_fixed, torch.bool, (L,), dev)
+    check_tensor("residuals", residuals, torch.int32, (L, S), dev)
+    check_tensor("coeffs", coeffs, torch.int32, (L, MAX_ORDER), dev)
+    check_tensor("shifts", shifts, torch.int32, (L,), dev)
+    check_tensor("orders", orders, torch.int32, (L,), dev)
+    check_tensor("is_fixed", is_fixed, torch.bool, (L,), dev)
     if L == 0 or S == 0:
         return torch.empty((L, S), dtype=torch.int32, device=dev)
 

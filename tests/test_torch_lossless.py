@@ -15,6 +15,7 @@ import flo_torch
 from flo_tpu.container import reader as tpu_reader
 from flo_tpu.core.convert import f32_to_i32_np, i32_to_f32_np
 from flo_tpu.lossless import decoder as tpu_decoder
+from flo_tpu.lossless import encoder as tpu_encoder
 from flo_torch._flo_host.container import reader as torch_reader
 from flo_torch.core import convert
 from flo_torch.lossless import decoder, encoder
@@ -140,14 +141,17 @@ def test_transform_frames_raise():
 @pytest.mark.parametrize(
     "samples,kwargs",
     [
-        (np.zeros(100, np.float32), {"compat": "reference-bugs"}),
-        (np.zeros(100, np.int32), {}),
+        (np.random.default_rng(1).integers(-2, 3, 2 * RATE + 77).astype(np.float32) / 32767,
+         {"compat": "reference-bugs"}),
+        ((np.sin(np.arange(2 * RATE + 77) / 9) * 20000).astype(np.int32), {}),
     ],
     ids=["reference-bugs", "integer-input"],
 )
-def test_bulk_device_encode_inputs_raise(samples, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        encoder.encode(samples, RATE, 1, **kwargs)
+def test_bulk_device_encode_inputs_match_reference(samples, kwargs):
+    """The inputs that take the bulk path in both packages: the same bytes."""
+    got = encoder.encode(samples, RATE, 1, device="cpu", **kwargs)
+    assert got == tpu_encoder.encode(samples, RATE, 1, **kwargs)
+    assert cuda_lpc.LAUNCHES == 0
 
 
 @pytest.mark.parametrize("name", _ALL)

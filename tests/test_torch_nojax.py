@@ -29,7 +29,19 @@ _SCRIPT = textwrap.dedent(
     ints = np.trunc(np.clip(x * np.float32(32767), -32768, 32767)).astype(np.int32)
     assert np.array_equal(y, ints.astype(np.float32) * np.float32(1 / 32767))
     assert flo_torch.validate(data) and flo_torch.info(data).channels == 2
-    assert cuda_lpc.LAUNCHES == 0
+
+    from flo_torch import batch
+    from flo_torch.lossless import encoder
+    from flo_torch.ops import cuda_ricepack, cuda_select
+    clips = [x, x[: 2 * 3000]]
+    exact = encoder.encode_many(clips, rate, 2, analysis="exact", device="cpu")
+    assert exact[0] == flo_torch.encode(x, rate, 2, analyze=False)
+    for clip, blob in zip(clips, batch.encode_many(clips, rate, 2, device="cpu")):
+        out = batch.decode_many([blob], device="cpu")[0]
+        i = np.trunc(np.clip(clip * np.float32(32767), -32768, 32767)).astype(np.int32)
+        assert np.array_equal(out, i.astype(np.float32) * np.float32(1 / 32767))
+    assert encoder.encode(ints, rate, 2, compat="reference-bugs", device="cpu")
+    assert cuda_lpc.LAUNCHES == cuda_select.LAUNCHES == cuda_ricepack.LAUNCHES == 0
     assert sys.modules["jax"] is None
     leaked = [m for m in sys.modules if m.startswith(("jax.", "jaxlib", "flo_tpu"))]
     assert not leaked, leaked
