@@ -20,8 +20,14 @@ Phases, in order; any failure exits non-zero:
      (level 5, analysis="exact"), and at ragged [37, 1537] and [37, 13] for
      every candidate plan (levels 0, 1, 2, 4, 5, 7, 8) with lanes off the
      plan and ragged nvalid;
-   - Rice pack at [960, 44100] from that search's output, and on a ragged
-     case with 256-271-bit codes, raw lanes and empty lanes;
+   - Rice pack at [960, 44100] from that search's output (timed with its
+     word-count wait, with max_words, and with max_words and the search's
+     sizes given, as the main path calls it), on a ragged case with
+     256-271-bit codes, raw lanes and empty lanes, and on the shapes its
+     tiles are sensitive to (lanes around a tile's length, a lane of 44,100
+     271-bit codes, only raw lanes, only empty lanes, one sample, lanes
+     ending on and one bit past a word boundary), each also with a wrong
+     size and with a buffer shorter than the stream;
 4. corpus: every lossless file of tests/vectors/examples decodes on the card
    exactly as on the CPU and validates, and the 9 recoverable ones re-encode
    on the card (integer samples, compat="reference-bugs") byte-identical;
@@ -394,9 +400,23 @@ def ragged_search_inputs(level: int, L: int, S: int):
             tuple(kd == "lpc" for kd in kinds))
 
 
+def equal_packed(got, want, what: str) -> int:
+    """Lane bytes and offsets equal, and the payload equal up to the packed
+    end: a buffer sized by ``max_words`` is longer and unspecified there, a
+    shorter one holds the stream as far as it goes."""
+    err = equal_outputs(got[1:], want[1:], what)
+    n = min(got[0].numel(), want[0].numel())
+    check(torch.equal(got[0][:n], want[0][:n]), f"{what}: payload != plain")
+    return err
+
+
 def phase_kernel_pack(gpu: str, search) -> dict:
+    from flo_torch.lossless import encoder
     from flo_torch.ops import blockspread, cuda_ricepack
 
+    check(cuda_ricepack.kernel_geometry()[0] == cuda_ricepack.TILE,
+          f"rice_pack's tile is {cuda_ricepack.kernel_geometry()[0]} codes, the wrapper's "
+          f"{cuda_ricepack.TILE}")
     (sel, k, size, residuals, _, _), nvalid = search
     L, S = residuals.shape
     pargs = (residuals, k, nvalid, sel == 0)
@@ -405,12 +425,27 @@ def phase_kernel_pack(gpu: str, search) -> dict:
     torch.cuda.synchronize()
     err = equal_outputs(got, want, f"rice_pack [{L}, {S}]")
     check(torch.equal(got[1], size.to(torch.int64)), "rice_pack lane bytes != search sizes")
+    # As the main path calls it: the worst-case buffer (no wait for the word
+    # count) and the search's sizes as the hint (one read of the residuals).
+    max_words = encoder._max_words([S] * (L // CHANNELS), CHANNELS)
+    main = cuda_ricepack.pack_lanes_cuda(*pargs, max_words=max_words, size_hint=size)
+    check(main[0].numel() == 4 * max_words, "rice_pack: the buffer is not max_words long")
+    equal_packed(main, want, f"rice_pack [{L}, {S}] with max_words and the sizes given")
+    equal_packed(cuda_ricepack.pack_lanes_cuda(*pargs, max_words=max_words), want,
+                 f"rice_pack [{L}, {S}] with max_words")
     ms = time_ms(lambda: cuda_ricepack.pack_lanes_cuda(*pargs), 20)
+    nowait_ms = time_ms(lambda: cuda_ricepack.pack_lanes_cuda(*pargs, max_words=max_words), 20)
+    main_ms = time_ms(
+        lambda: cuda_ricepack.pack_lanes_cuda(*pargs, max_words=max_words, size_hint=size), 20)
     plain_ms = time_ms(lambda: blockspread.pack_lanes_words(*pargs), 2)
     bound_ms, bound_by = pack_bound(pargs, got[0].numel())
     log(f"[3 kernel] rice_pack == plain at [{L}, {S}] ({got[0].numel() / 1e6:.2f} MB packed; "
         f"exact): kernel {ms:.4f} ms (with its word-count wait; bound {bound_ms:.4f} ms by "
         f"{bound_by}), plain PyTorch {plain_ms:.1f} ms [{gpu}]")
+    log(f"[3 kernel] rice_pack at [{L}, {S}] with max_words (no wait): {nowait_ms:.4f} ms; with "
+        f"max_words and the search's sizes given, as the main path calls it (one read): "
+        f"{main_ms:.4f} ms = {100 * bound_ms / main_ms:.1f}% of the bound {bound_ms:.4f} ms "
+        f"[{gpu}]")
 
     rargs = [torch.from_numpy(a).to(DEVICE) for a in ragged_pack_case(11, 37, 1537)]
     rgot = cuda_ricepack.pack_lanes_cuda(*rargs)
@@ -419,8 +454,38 @@ def phase_kernel_pack(gpu: str, search) -> dict:
     check(longest == 271, f"ragged pack case's longest code is {longest} bits")
     log(f"[3 kernel] rice_pack == plain on a ragged [37, 1537] with codes up to {longest} bits, "
         "raw lanes with the int16 wrap and empty lanes (exact)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+
+    # The shapes the kernel's tiles are sensitive to (the CPU tests hold the
+    # plain version to the host coder on the same cases), and one lane of
+    # 44,100 271-bit codes beside ordinary lanes. Each: exact buffer; the
+    # worst-case buffer with the true sizes given; sizes of which one is a
+    # word short (that lane is cut at its span, as in the plain version); and
+    # a buffer three words short of the stream.
+    cases = {**cuda_ricepack.edge_cases(),
+             f"271-bit lane [8, {S}]": cuda_ricepack.dense_lane_case(5, 8, S)}
+    for what, arrays in cases.items():
+        cargs = [torch.from_numpy(a).to(DEVICE) for a in arrays]
+        cwant = blockspread.pack_lanes_words(*cargs)
+        equal_outputs(cuda_ricepack.pack_lanes_cuda(*cargs), cwant, f"rice_pack {what}")
+        sizes = cwant[1].to(torch.int32)
+        roomy = cwant[0].numel() // 4 + 5
+        equal_packed(cuda_ricepack.pack_lanes_cuda(*cargs, max_words=roomy, size_hint=sizes),
+                     cwant, f"rice_pack {what} with max_words and sizes")
+        short = sizes.clone()
+        short[0] = max(int(short[0]) - 4, 0)
+        equal_outputs(cuda_ricepack.pack_lanes_cuda(*cargs, size_hint=short),
+                      blockspread.pack_lanes_words(*cargs, size_hint=short),
+                      f"rice_pack {what} with a short size")
+        few = max(cwant[0].numel() // 4 - 3, 0)
+        cut = cuda_ricepack.pack_lanes_cuda(*cargs, max_words=few)
+        check(cut[0].numel() == 4 * few, f"rice_pack {what}: short buffer's length")
+        equal_packed(cut, cwant, f"rice_pack {what} with a short buffer")
+    dense_mb = int(blockspread.code_fields(*cargs)[0][1].sum()) / 8e6
+    log(f"[3 kernel] rice_pack == plain on {', '.join(cases)} ({dense_mb:.2f} MB of 271-bit "
+        "codes in that lane); each also with max_words and sizes given, with one size a word "
+        "short, and with a buffer three words short (exact)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "ms_no_wait": nowait_ms, "ms_main_path": main_ms}
 
 
 #: Lossless corpus files whose encoder input the reference generator's own
@@ -585,7 +650,8 @@ def encode_breakdown(clips, encoded, gpu: str) -> str:
                                                                     is_lpc)
         lap("select")
         packed = blockspread.pack_best(res, k, nvalid, sel == 0,
-                                       max_words=encoder._max_words(fs, CHANNELS))
+                                       max_words=encoder._max_words(fs, CHANNELS),
+                                       size_hint=size)
         lap("pack")
         host = encoder._download_chunk(
             {"out": (sel, k, size, *packed, win_c, win_s), "mid_side": mid_side,

@@ -1,25 +1,34 @@
 #!/usr/bin/env python3
-"""The design search of the LPC reconstruction and candidate search kernels,
-on one CUDA card.
+"""The design search of the three hand-written kernels (LPC reconstruction,
+candidate search, Rice pack), on one CUDA card.
 
-    python3 flo_torch/csrc/probes/design_search.py   # from the repository root
+    python3 flo_torch/csrc/probes/design_search.py [lpc] [select] [pack]
 
-Builds ``lpc_designs.cu`` and ``select_designs.cu`` (every step of each
-kernel's design search, one library each, with the port's nvcc flags, into
-``build/flo_torch/probes/``), checks every design equal to the plain version
-on what it is timed on, then times the designs against each other twice, in
-turns (A B .. B A after a warm-up, 10 launches each, CUDA events):
+from the repository root; with no argument all three parts run. Builds
+``lpc_designs.cu``, ``select_designs.cu`` and ``pack_designs.cu`` (every step
+of each kernel's design search, one library each, with the port's nvcc flags,
+into ``build/flo_torch/probes/``), checks every design equal to the plain
+version on what it is timed on, then times the designs against each other
+twice, in turns (A B .. B A after a warm-up, 10 launches each, CUDA events):
 
 - the reconstruction on ``chip_smoke.mixed_lanes`` and on the main path's
   own lanes (the headline clips bulk-encoded at level 5) at [960, 44100],
   and on mixed lanes at four times the lanes;
 - the search at [960, 44100] on the headline clips' exact tables at levels
-  5 and 8.
+  5 and 8;
+- the pack at [960, 44100] on that search's winners (level 5) and on its
+  first 480 lanes (the size of a chunk of the main path), every design with
+  the worst-case buffer the main path gives it, with and without the
+  search's byte counts as a hint; before that, the first packer (design 0)
+  pass by pass, and the shipped wrapper with and without its word-count
+  wait.
 
 Prints a line for each design and input, with the card's name and power
 limit. The port ships design 4 of the reconstruction
-(``csrc/lpc_reconstruct.cu``) and design 2 of the search
-(``csrc/lossless_select.cu``); this script is not part of it.
+(``csrc/lpc_reconstruct.cu``), design 2 of the search
+(``csrc/lossless_select.cu``) and one design of the pack
+(``csrc/rice_pack.cu``, whose header names it); this script is not part of
+it.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import hashlib
 import pathlib
 import subprocess
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
@@ -128,6 +138,94 @@ def select_launcher(lib):
     return run
 
 
+#: pack_designs.cu's designs, in order.
+PACK_DESIGNS = (
+    "first packer: a bit offset a sample, global atomicOr into a zeroed buffer, byte-order pass",
+    "count + tile pack, codes ORed into a shared-memory window with shared atomics",
+    "count + tile pack, a thread's 8 codes concatenated in a register",
+    "count + tile pack, a thread an output word (binary search of the offsets, no atomics)",
+    "design 2 with aligned 16-byte loads into registers, a code made once, pairs of codes, "
+    "two windows in turn; 256 threads of 8 samples",
+    "the same with 128 threads of 16 samples",
+    "the same with 128 threads of 8 samples",
+    "design 6 with no branch in a code's step (predicated shared atomicOr, no pairs), "
+    "registers capped for 8 blocks of 128 threads an SM",
+    "the same with 4 blocks of 256 threads an SM",
+    "the same with 256 threads and no cap on the registers",
+    "design 8 with plain stores for all but a thread's first and last word (two atomics a "
+    "thread and tile, issued by whole warps)",
+    "the same, and no atomic and no zeroed window in a tile whose threads all have 32 bits "
+    "or more",
+    "the same with 128 threads of 16 samples, 5 blocks an SM",
+    "design 11 with fewer instructions a code (no per-sample bounds inside the lane, long "
+    "codes' fields pinned in their branch, shuffle scan, every leaving word a plain store)",
+    "the same with registers capped for 5 blocks of 256 threads an SM",
+    "the same with 8 blocks of 128 threads an SM",
+    "the same with 128 threads of 16 samples, 4 blocks an SM",
+    "the same with 256 threads of 16 samples, 2 blocks an SM",
+    "the same with 512 threads of 8 samples, 2 blocks an SM",
+)
+
+
+def pack_launcher(lib):
+    """(run, pieces): ``run(design, residuals, k, nvalid, is_raw, max_words,
+    hint)`` packs as ``pack_lanes_cuda`` does, by one design; ``pieces`` are
+    the library's entry points by name, for timing a pass alone."""
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    pieces = {
+        "d0_lengths": (lib.flo_pack_d0_lengths, [ptr] * 6 + [i64, i64, ptr]),
+        "d0_scatter": (lib.flo_pack_d0_scatter, [ptr] * 7 + [i64] * 3 + [ptr]),
+        "d0_byteswap": (lib.flo_pack_d0_byteswap, [ptr, i64, ptr]),
+        "count": (lib.flo_pack_count, [ptr] * 5 + [i64, i64, ptr]),
+        "layout": (lib.flo_pack_layout, [ptr, ptr, i64, ptr, ptr, ptr, ptr]),
+        "pack": (lib.flo_pack_pack, [ctypes.c_int32] + [ptr] * 8 + [i64] * 3 + [ptr]),
+    }
+
+    def bind(name):
+        fn, argtypes = pieces[name]
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+
+        def call(*args):
+            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+            smoke.check(rc == 0, f"pack_designs {name}: CUDA error {rc}")
+
+        return call
+
+    calls = {name: bind(name) for name in pieces}
+
+    def run(design, residuals, k, nvalid, is_raw, max_words=None, hint=None):
+        from flo_torch.ops import blockspread
+
+        L, S = residuals.shape
+        dev = residuals.device
+        lanes = [t.data_ptr() for t in (residuals, k, nvalid, is_raw)]
+        if design == 0:
+            bitoff = torch.empty((L, S), dtype=torch.int32, device=dev)
+            lane_bits = torch.zeros(L, dtype=torch.int64, device=dev)
+            calls["d0_lengths"](*lanes, bitoff.data_ptr(), lane_bits.data_ptr(), L, S)
+            lane_bytes, lane_woff, lane_words = blockspread.lane_layout(lane_bits)
+            nw = int(lane_words.sum()) if max_words is None else int(max_words)
+            words = torch.zeros(nw, dtype=torch.int32, device=dev)
+            calls["d0_scatter"](*lanes, bitoff.data_ptr(), lane_woff.data_ptr(),
+                                words.data_ptr(), L, S, nw)
+            calls["d0_byteswap"](words.data_ptr(), nw)
+            return words.view(torch.uint8), lane_bytes, lane_woff * 4
+        # lane bits, byte offsets, spans in words, bytes, and the word total
+        meta = torch.empty(4 * L + 1, dtype=torch.int64, device=dev)
+        bits, off, span, nbytes = (meta[i * L : (i + 1) * L] for i in range(4))
+        if hint is None:
+            calls["count"](*lanes, bits.data_ptr(), L, S)
+        calls["layout"](bits.data_ptr(), None if hint is None else hint.data_ptr(), L,
+                        off.data_ptr(), span.data_ptr(), meta[4 * L :].data_ptr())
+        nw = int(meta[4 * L]) if max_words is None else int(max_words)
+        words = torch.empty(nw, dtype=torch.int32, device=dev)
+        calls["pack"](design, *lanes, off.data_ptr(), span.data_ptr(), words.data_ptr(),
+                      nbytes.data_ptr(), L, S, nw)
+        return words.view(torch.uint8), nbytes, off
+
+    return run, calls
+
+
 def time_in_turns(fns: dict, iters: int = 10) -> dict:
     """Each function timed twice, in the order A B .. B A, after a warm-up:
     {name: [first, second]} in ms."""
@@ -149,20 +247,13 @@ def main_path_lanes(clips):
     return decoder.lanes_to_device(*decoder._concat_group(marshaled), device=smoke.DEVICE)[:5]
 
 
-def main() -> int:
-    from flo_torch.ops import lpc, select
+def search_lpc(gpu: str, clips) -> None:
+    from flo_torch.ops import lpc
 
-    if not torch.cuda.is_available():
-        raise smoke.SmokeFailure("no CUDA device: torch.cuda.is_available() is False")
-    gpu = smoke.gpu_line()
-    with ThreadPoolExecutor(2) as pool:
-        lpc_lib, select_lib = pool.map(build, ["lpc_designs", "select_designs"])
-    run_lpc, run_select = lpc_launcher(lpc_lib), select_launcher(select_lib)
-    smoke.check(lpc_lib.flo_lpc_designs() == len(LPC_DESIGNS), "lpc design count")
-    smoke.check(select_lib.flo_select_designs() == len(SELECT_DESIGNS), "select design count")
-
+    lib = build("lpc_designs")
+    run_lpc = lpc_launcher(lib)
+    smoke.check(lib.flo_lpc_designs() == len(LPC_DESIGNS), "lpc design count")
     L, S = smoke.KERNEL_SHAPES[0]
-    clips = smoke.headline_clips()
     inputs = {"mixed": smoke.lpc_case(L + S, L, S), "main path": list(main_path_lanes(clips)),
               "mixed x4": smoke.lpc_case(7, 4 * L, S)}
     for what, args in inputs.items():
@@ -175,7 +266,15 @@ def main() -> int:
             smoke.log(f"[design] lpc_reconstruct {what} [{args[0].shape[0]}, {S}] design {d} "
                       f"({LPC_DESIGNS[d][0]}): {ms[0]:.4f} / {ms[1]:.4f} ms [{gpu}]")
         del want
-    del inputs
+
+
+def search_select(gpu: str, clips) -> None:
+    from flo_torch.ops import select
+
+    lib = build("select_designs")
+    run_select = select_launcher(lib)
+    smoke.check(lib.flo_select_designs() == len(SELECT_DESIGNS), "select design count")
+    L, S = smoke.KERNEL_SHAPES[0]
     for level in (5, 8):
         args, is_lpc = smoke.headline_search_inputs(clips, level)
         want = select.encode_select_step(*args, is_lpc)
@@ -187,9 +286,174 @@ def main() -> int:
         for d, ms in time_in_turns(fns).items():
             smoke.log(f"[design] lossless_select level {level} [{L}, {S}] design {d} "
                       f"({SELECT_DESIGNS[d]}): {ms[0]:.4f} / {ms[1]:.4f} ms [{gpu}]")
+
+
+def host_ms(fn, iters: int) -> float:
+    """Mean milliseconds of fn() on the host clock, the device idle before
+    and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def split_first_packer(gpu: str, calls, pargs, max_words: int) -> None:
+    """Design 0 pass by pass at the headline shape: each piece launched 20
+    times in a row between two CUDA events, the word-count wait on the host
+    clock."""
+    from flo_torch.ops import blockspread
+
+    residuals = pargs[0]
+    L, S = residuals.shape
+    dev = residuals.device
+    lanes = [t.data_ptr() for t in pargs]
+    bitoff = torch.empty((L, S), dtype=torch.int32, device=dev)
+    lane_bits = torch.zeros(L, dtype=torch.int64, device=dev)
+
+    def lengths():
+        calls["d0_lengths"](*lanes, bitoff.data_ptr(), lane_bits.data_ptr(), L, S)
+
+    lengths()
+    lane_bytes, lane_woff, lane_words = blockspread.lane_layout(lane_bits)
+    exact = int(lane_words.sum())
+    parts = {
+        "lengths_kernel": smoke.time_ms(lengths, 20),
+        "lane_layout (5 torch ops)": smoke.time_ms(lambda: blockspread.lane_layout(lane_bits), 20),
+        "int(lane_words.sum()), host clock": host_ms(lambda: int(lane_words.sum()), 20),
+    }
+    for what, nw in (("exact", exact), ("max_words", max_words)):
+        words = torch.zeros(nw, dtype=torch.int32, device=dev)
+        parts[f"torch.zeros, {what} ({4 * nw / 1e6:.1f} MB)"] = smoke.time_ms(
+            lambda: torch.zeros(nw, dtype=torch.int32, device=dev), 20)
+        parts[f"scatter_kernel, {what}"] = smoke.time_ms(
+            lambda: calls["d0_scatter"](*lanes, bitoff.data_ptr(), lane_woff.data_ptr(),
+                                        words.data_ptr(), L, S, nw), 20)
+        parts[f"byteswap_kernel, {what}"] = smoke.time_ms(
+            lambda: calls["d0_byteswap"](words.data_ptr(), nw), 20)
+        del words
+    for what, ms in parts.items():
+        smoke.log(f"[split] first packer [{L}, {S}] {what}: {ms:.4f} ms [{gpu}]")
+
+
+def search_pack(gpu: str, clips) -> None:
+    from flo_torch.lossless import encoder
+    from flo_torch.ops import blockspread, cuda_ricepack, cuda_select
+
+    lib = build("pack_designs")
+    run, calls = pack_launcher(lib)
+    smoke.check(lib.flo_pack_designs() == len(PACK_DESIGNS), "pack design count")
+    designs = range(len(PACK_DESIGNS))
+
+    # Every design on the shapes a tiled packer is sensitive to: exact
+    # buffer, the plain version's byte counts as a hint, and a buffer three
+    # words short of the stream (the bytes that fit must still be right).
+    small = {"ragged [37, 1537]": smoke.ragged_pack_case(11, 37, 1537),
+             **cuda_ricepack.edge_cases(),
+             "dense lane [8, 44100]": cuda_ricepack.dense_lane_case(5, 8, 44100)}
+    for what, arrays in small.items():
+        args = [torch.from_numpy(a).to(smoke.DEVICE) for a in arrays]
+        want = blockspread.pack_lanes_words(*args)
+        hint = want[1].to(torch.int32)
+        short = max(want[0].numel() // 4 - 3, 0)
+        for d in designs:
+            smoke.equal_packed(run(d, *args), want, f"pack design {d} on {what}")
+            got = run(d, *args, max_words=short)
+            smoke.equal_outputs(got[1:], want[1:], f"pack design {d} on {what}, short buffer")
+            smoke.check(torch.equal(got[0], want[0][: 4 * short]),
+                        f"pack design {d} on {what}: short buffer's payload != plain")
+            if d:
+                smoke.equal_packed(run(d, *args, hint=hint), want, f"pack design {d} + hint on {what}")
+    smoke.log(f"[design] rice_pack designs 0-{len(PACK_DESIGNS) - 1} == plain on "
+              f"{', '.join(small)} (exact; also with a hint and with a short buffer) [{gpu}]")
+
+    args, is_lpc = smoke.headline_search_inputs(clips)
+    nvalid = args[1]
+    sel, k, size, residuals, _, _ = cuda_select.encode_select_cuda(*args, is_lpc)
+    del args
+    is_raw = sel == 0
+    L, S = residuals.shape
+    for lanes in (L, L // 2):
+        pargs = (residuals[:lanes], k[:lanes], nvalid[:lanes], is_raw[:lanes])
+        hint = size[:lanes]
+        max_words = encoder._max_words([S] * (lanes // smoke.CHANNELS), smoke.CHANNELS)
+        want = blockspread.pack_lanes_words(*pargs)
+        smoke.check(torch.equal(want[1], hint.to(torch.int64)), "search sizes != plain lane bytes")
+        if lanes == L:
+            split_first_packer(gpu, calls, pargs, max_words)
+            ptrs = [t.data_ptr() for t in pargs]
+            meta = torch.empty(4 * lanes + 1, dtype=torch.int64, device=residuals.device)
+            bits, off, span, nbytes = (meta[i * lanes : (i + 1) * lanes] for i in range(4))
+            words = torch.empty(max_words, dtype=torch.int32, device=residuals.device)
+            pieces = {
+                "count_kernel": lambda: calls["count"](*ptrs, bits.data_ptr(), lanes, S),
+                "layout_kernel": lambda: calls["layout"](
+                    bits.data_ptr(), None, lanes, off.data_ptr(), span.data_ptr(),
+                    meta[4 * lanes :].data_ptr()),
+            }
+            for d in designs[1:]:
+                pieces[f"pack_kernel of design {d}"] = lambda d=d: calls["pack"](
+                    d, *ptrs, off.data_ptr(), span.data_ptr(), words.data_ptr(),
+                    nbytes.data_ptr(), lanes, S, max_words)
+            # Designs 2 and 8 with parts cut out (the words come out wrong):
+            # what is left when the tile's assembly, its stores, and all
+            # after the scan are gone.
+            for d, cut in ((d, cut) for d in (2, 8) for cut in (1, 2, 3)):
+                what = ("without the assembly", "without assembly and stores",
+                        "loads, codes and scan only")[cut - 1]
+                pieces[f"pack_kernel of design {d} {what}"] = lambda c=10 * d + cut: calls["pack"](
+                    c, *ptrs, off.data_ptr(), span.data_ptr(), words.data_ptr(),
+                    nbytes.data_ptr(), lanes, S, max_words)
+            for what, fn in pieces.items():
+                fn()
+                smoke.log(f"[split] tile packers [{lanes}, {S}] {what}: "
+                          f"{smoke.time_ms(fn, 20):.4f} ms [{gpu}]")
+            del words, meta
+        fns = {}
+        for d in designs:
+            smoke.equal_packed(run(d, *pargs), want, f"pack design {d} [{lanes}, {S}]")
+            smoke.equal_packed(run(d, *pargs, max_words), want, f"pack design {d} [{lanes}, {S}]")
+            fns[f"design {d}, worst-case buffer"] = lambda d=d: run(d, *pargs, max_words)
+            if d:
+                smoke.equal_packed(run(d, *pargs, max_words, hint), want,
+                             f"pack design {d} + hint [{lanes}, {S}]")
+                fns[f"design {d}, worst-case buffer, byte counts given"] = (
+                    lambda d=d: run(d, *pargs, max_words, hint))
+            fns[f"design {d}, exact buffer (waits for the word count)"] = (
+                lambda d=d: run(d, *pargs))
+        smoke.equal_packed(cuda_ricepack.pack_lanes_cuda(*pargs), want, "shipped pack")
+        fns["shipped wrapper, worst-case buffer"] = (
+            lambda: cuda_ricepack.pack_lanes_cuda(*pargs, max_words=max_words))
+        fns["shipped wrapper, worst-case buffer, byte counts given"] = (
+            lambda: cuda_ricepack.pack_lanes_cuda(*pargs, max_words=max_words, size_hint=hint))
+        fns["shipped wrapper, exact buffer (waits)"] = lambda: cuda_ricepack.pack_lanes_cuda(*pargs)
+        bound_ms, _ = smoke.pack_bound(pargs, want[0].numel())
+        for what, ms in time_in_turns(fns, 20).items():
+            smoke.log(f"[design] rice_pack [{lanes}, {S}] {what}: {ms[0]:.4f} / {ms[1]:.4f} ms "
+                      f"(bound {bound_ms:.4f} ms) [{gpu}]")
+        for d in designs:
+            smoke.log(f"[design] rice_pack design {d}: {PACK_DESIGNS[d]}")
+        del want
+
+
+def main(argv) -> int:
+    parts = {"lpc": search_lpc, "select": search_select, "pack": search_pack}
+    chosen = argv or list(parts)
+    for name in chosen:
+        if name not in parts:
+            raise SystemExit(f"unknown part {name!r}: choose from {', '.join(parts)}")
+    if not torch.cuda.is_available():
+        raise smoke.SmokeFailure("no CUDA device: torch.cuda.is_available() is False")
+    gpu = smoke.gpu_line()
+    with ThreadPoolExecutor(len(chosen)) as pool:  # one nvcc a library, all started together
+        list(pool.map(build, [f"{name}_designs" for name in chosen]))
+    clips = smoke.headline_clips()
+    for name in chosen:
+        parts[name](gpu, clips)
     smoke.log(f"[design] every design equal to the plain version [{gpu}]")
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

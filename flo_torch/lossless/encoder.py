@@ -345,9 +345,12 @@ def _dispatch_chunk(lanes_in, frame_samples, C, kinds, cand_orders, analysis="ex
             tuple(kd == "lpc" for kd in kinds),
         )
     sel, k, size, residuals, win_c, win_shift = search
+    # The search's exact sizes place the lanes, so the pack reads the
+    # residuals once; its own byte counts are checked against them in
+    # _download_chunk.
     packed = blockspread.pack_best(
         residuals, k, nvalid_f.repeat_interleave(C), sel == 0,
-        max_words=_max_words(frame_samples, C),
+        max_words=_max_words(frame_samples, C), size_hint=size,
     )
     return {
         "out": (sel, k, size, *packed, win_c, win_shift),

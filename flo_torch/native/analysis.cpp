@@ -215,7 +215,11 @@ void blake3_digest(const uint8_t* data, int64_t n, uint8_t out32[32]) {
     int64_t len = std::min<int64_t>(CHUNK_LEN, n - off);
     chunk_cv(data + off, len, (uint64_t)c, 0, &cvs[(size_t)c * 8]);
   }
-  // Level-wise pairwise merge, odd node carried (== the spec's tree).
+  // Level-wise pairwise merge, odd node carried (== the spec's tree). Each
+  // level is written to the other of two buffers: merged in place, pair p
+  // would overwrite cvs[p] while another thread still reads it as half of
+  // pair p / 2.
+  std::vector<uint32_t> next((size_t)((n_chunks + 1) / 2) * 8);
   int64_t m = n_chunks;
   while (m > 2) {
     int64_t pairs = m / 2;
@@ -224,12 +228,11 @@ void blake3_digest(const uint8_t* data, int64_t n, uint8_t out32[32]) {
       uint32_t block[16];
       std::memcpy(block, &cvs[(size_t)(2 * p) * 8], 32);
       std::memcpy(block + 8, &cvs[(size_t)(2 * p + 1) * 8], 32);
-      uint32_t out[8];
-      compress(IV, block, 0, BLOCK_LEN, PARENT, out);
-      std::memcpy(&cvs[(size_t)p * 8], out, 32);
+      compress(IV, block, 0, BLOCK_LEN, PARENT, &next[(size_t)p * 8]);
     }
-    if (m & 1) std::memcpy(&cvs[(size_t)pairs * 8], &cvs[(size_t)(m - 1) * 8], 32);
+    if (m & 1) std::memcpy(&next[(size_t)pairs * 8], &cvs[(size_t)(m - 1) * 8], 32);
     m = pairs + (m & 1);
+    cvs.swap(next);
   }
   uint32_t block[16];
   std::memcpy(block, &cvs[0], 32);

@@ -14,8 +14,10 @@ patch capacity and host re-pack, and its superrow layout, have no
 counterpart.
 
 On a CUDA tensor :func:`pack_best` launches the hand-written kernel
-(``ops/cuda_ricepack.py``, ``csrc/rice_pack.cu``); on a CPU tensor it runs
-:func:`pack_lanes_words`.
+(``ops/cuda_ricepack.py``, ``csrc/rice_pack.cu``: a block a lane walks it in
+tiles, assembles each tile's words in shared memory and stores every word of
+the stream once, in byte order); on a CPU tensor it runs
+:func:`pack_lanes_words`, the yardstick of exactness.
 """
 
 from __future__ import annotations
@@ -73,7 +75,7 @@ def words_to_bytes(words: torch.Tensor) -> torch.Tensor:
     return ((words[:, None] >> shifts) & 0xFF).to(torch.uint8).reshape(-1)
 
 
-def pack_lanes_words(residuals, k, nvalid, is_raw):
+def pack_lanes_words(residuals, k, nvalid, is_raw, size_hint=None):
     """Plain pack of every lane's code stream.
 
     residuals [L, S] int32 (Rice lanes: residuals; raw lanes: samples);
@@ -84,16 +86,26 @@ def pack_lanes_words(residuals, k, nvalid, is_raw):
     Code lengths, an int64 cumsum per lane for the bit offsets, then for
     each word a code touches its 32 bits by ``index_add_`` into int64
     words: the bits of different codes are disjoint, so the sum is an OR.
+
+    ``size_hint`` [L] (integers), as the kernel takes it: lane ``l`` gets
+    ``ceil(size_hint[l] / 4)`` words instead of what its own count asks for,
+    the words of its stream past that span are dropped, and ``lane_bytes``
+    stays the pack's own count. With the true byte counts the result is the
+    same as without a hint.
     """
     L, S = residuals.shape
     dev = residuals.device
     clen, ones, tail, tail_len = code_fields(residuals, k, nvalid, is_raw)
     lane_bits = clen.sum(1) if S else torch.zeros(L, dtype=torch.int64, device=dev)
     lane_bytes, lane_woff, lane_words = lane_layout(lane_bits)
+    if size_hint is not None:
+        lane_words = (size_hint.to(torch.int64).clamp(min=0) + 3) >> 2
+        lane_woff = torch.cumsum(lane_words, 0) - lane_words
     total_words = int(lane_words.sum()) if L else 0
     words = torch.zeros(total_words, dtype=torch.int64, device=dev)
     live = clen > 0
     start = ((lane_woff << 5)[:, None] + torch.cumsum(clen, 1) - clen)[live]
+    lane_end = (lane_woff + lane_words)[:, None].expand(L, S)[live]
     clen, ones, tail, tail_len = clen[live], ones[live], tail[live], tail_len[live]
     first = start >> 5
     span = ((start + clen - 1) >> 5) - first + 1
@@ -109,21 +121,25 @@ def pack_lanes_words(residuals, k, nvalid, is_raw):
         sh = 32 - a - tail_len
         placed = torch.where(sh >= 0, tail << sh.clamp(0, 62), tail >> (-sh).clamp(0, 62))
         placed = torch.where((a < 32) & (a + tail_len > 0), placed & _M32, 0)
-        hit = t < span
+        hit = (t < span) & (w < lane_end)
         words.index_add_(0, w[hit], (run + placed)[hit])
     return words_to_bytes(words), lane_bytes, lane_woff * 4
 
 
-def pack_best(residuals, k, nvalid, is_raw, max_words=None):
+def pack_best(residuals, k, nvalid, is_raw, max_words=None, size_hint=None):
     """:func:`pack_lanes_words` for CPU tensors; the hand-written CUDA kernel
     (``ops/cuda_ricepack.py``) for anything else, which launches or raises.
 
     ``max_words``, where the caller knows a bound on the packed words, lets
     the kernel's buffer be allocated without waiting on the device; the
     payload may then be longer than the packed bytes, which end at
-    ``lane_off[-1] + lane_bytes[-1]``."""
+    ``lane_off[-1] + lane_bytes[-1]``, and is unspecified past them.
+    ``size_hint`` [L] int32, where the caller knows the lanes' packed byte
+    counts, lets the kernel read the residuals once; ``lane_bytes`` stays the
+    pack's own count, for the caller to hold against the hint."""
     if residuals.device.type == "cpu":
-        return pack_lanes_words(residuals, k, nvalid, is_raw)
+        return pack_lanes_words(residuals, k, nvalid, is_raw, size_hint=size_hint)
     from .cuda_ricepack import pack_lanes_cuda
 
-    return pack_lanes_cuda(residuals, k, nvalid, is_raw, max_words=max_words)
+    return pack_lanes_cuda(residuals, k, nvalid, is_raw, max_words=max_words,
+                           size_hint=size_hint)

@@ -23,7 +23,7 @@ from flo_tpu.lossless import encoder as tpu_encoder
 
 from .conftest import EXAMPLES_DIR
 from .test_torch_lossless import RATE as CLIP_RATE
-from .test_torch_lossless import _clip, _metadata_without_hash
+from .test_torch_lossless import _assert_spec_hash, _clip, _metadata_without_hash
 
 RATE = 4000
 #: Corpus files whose encoder input the reference generator's Raw-frame
@@ -180,14 +180,16 @@ def test_integer_input_outside_int16_is_refused():
 
 
 def test_batch_encode_many_matches_reference_metadata():
-    """flo_tpu.batch's analysis metadata, BLAKE3 hash left out; the audio is
-    the port's device-analysis encode, which round-trips bit-exactly."""
+    """flo_tpu.batch's analysis metadata, its BLAKE3 hash left out (the port's
+    is held to the pure-Python digest); the audio is the port's
+    device-analysis encode, which round-trips bit-exactly."""
     files = _bulk_files(2)
     got = batch.encode_many(files, RATE, 2, device="cpu")
     want = tpu_batch.encode_many(files, RATE, 2)
     bare = encoder.encode_many(files, RATE, 2, device="cpu")
     for g, w, b, x in zip(got, want, bare, files):
         assert _metadata_without_hash(g) == _metadata_without_hash(w)
+        _assert_spec_hash(g, x, 2, RATE)
         assert reader.read(g).frames == reader.read(b).frames
         np.testing.assert_array_equal(
             decoder.decode_file_i32(reader.read(g), device="cpu"), f32_to_i32_np(x).reshape(-1, 2)

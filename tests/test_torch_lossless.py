@@ -17,7 +17,7 @@ from flo_tpu.core.convert import f32_to_i32_np, i32_to_f32_np
 from flo_tpu.lossless import decoder as tpu_decoder
 from flo_tpu.lossless import encoder as tpu_encoder
 from flo_torch.container import reader as torch_reader
-from flo_torch.core import convert
+from flo_torch.core import blake3, convert
 from flo_torch.lossless import decoder, encoder
 from flo_torch.ops import cuda_lpc
 
@@ -94,11 +94,24 @@ def test_marshal_and_lanes_to_device():
 def _metadata_without_hash(data):
     """The embedded analysis metadata with the fingerprint's BLAKE3 hash
     left out: the reference's multi-threaded C++ BLAKE3 is not deterministic
-    (ROADMAP.md section 3), so the hash may differ between any two calls."""
+    (ROADMAP.md section 3), so its hash may differ between any two calls.
+    The port's copy is repaired: :func:`_assert_spec_hash` holds its hash to
+    the pure-Python digest."""
     meta = msgpack.unpackb(tpu_reader.read(data).metadata, raw=False, strict_map_key=False)
     fp = msgpack.unpackb(meta.pop("spectrum_fingerprint"), raw=False, strict_map_key=False)
     fp.pop("hash")
     return meta, fp
+
+
+def _assert_spec_hash(data, x, channels, rate=RATE):
+    """The fingerprint hash embedded in the port's file is the pure-Python
+    BLAKE3 digest of what the fingerprint hashes: channels u8, rate u32le,
+    sample count u32le, then the float32 PCM."""
+    meta = msgpack.unpackb(torch_reader.read(data).metadata, raw=False, strict_map_key=False)
+    fp = msgpack.unpackb(meta["spectrum_fingerprint"], raw=False, strict_map_key=False)
+    pcm = np.asarray(x, np.float32).reshape(-1)
+    header = bytes([channels]) + np.array([rate, pcm.size], "<u4").tobytes()
+    assert bytes(fp["hash"]) == blake3.digest(header + pcm.astype("<f4").tobytes())
 
 
 @pytest.mark.parametrize("channels,level", [(1, 5), (2, 5), (2, 8), (1, 0)])
@@ -111,6 +124,7 @@ def test_encode_bytes_match_reference(channels, level):
     got = flo_torch.encode(x, RATE, channels, compression_level=level)
     assert flo_tpu.strip_metadata(got) == flo_tpu.strip_metadata(want)
     assert _metadata_without_hash(got) == _metadata_without_hash(want)
+    _assert_spec_hash(got, x, channels)
 
 
 def test_clip_exercises_silence_and_mid_side():

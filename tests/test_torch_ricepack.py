@@ -56,6 +56,74 @@ def test_pack_matches_rice_host(seed):
     assert cuda_ricepack.LAUNCHES == 0
 
 
+def _check_lanes(case, packed):
+    payload, lane_bytes, lane_off = (t.numpy() for t in packed)
+    assert (lane_off % 4 == 0).all()
+    words = -(-lane_bytes // 4)
+    assert np.array_equal(lane_off, 4 * (np.cumsum(words) - words))  # back to back
+    assert len(payload) == 4 * words.sum()
+    for lane in range(len(lane_off)):
+        got = payload[lane_off[lane] : lane_off[lane] + lane_bytes[lane]].tobytes()
+        assert got == _want(*case, lane), f"lane {lane}"
+        pad = payload[lane_off[lane] + lane_bytes[lane] : lane_off[lane] + 4 * words[lane]]
+        assert not pad.any(), f"lane {lane}: the last word is not zero-padded"
+
+
+@pytest.mark.parametrize("name", list(cuda_ricepack.edge_cases()))
+def test_pack_edge_shapes_match_rice_host(name):
+    """The shapes the kernel's tiles are sensitive to (lanes around a tile's
+    length, 271-bit codes over several tiles, only raw lanes, only empty
+    lanes, one sample, lanes ending on and one bit past a word boundary), on
+    the plain version against the host coder, exact."""
+    case = cuda_ricepack.edge_cases()[name]
+    tensors = [torch.from_numpy(a) for a in case]
+    packed = blockspread.pack_lanes_words(*tensors)
+    _check_lanes(case, packed)
+    # The true byte counts as a hint change nothing.
+    hinted = blockspread.pack_best(*tensors, size_hint=packed[1].to(torch.int32))
+    for got, want in zip(hinted, packed):
+        assert torch.equal(got, want)
+    assert cuda_ricepack.LAUNCHES == 0
+
+
+def test_edge_shapes_cover_what_they_name():
+    cases = cuda_ricepack.edge_cases()
+    T = cuda_ricepack.TILE
+    assert [cases[n][0].shape[1] for n in ("tile - 1", "tile", "tile + 1", "2 tiles + 3")] == [
+        T - 1, T, T + 1, 2 * T + 3]
+    fields = lambda n: blockspread.code_fields(*(torch.from_numpy(a) for a in cases[n]))[0]
+    dense = fields("271-bit lane")[1]
+    assert dense.shape[0] > 2 * T and (dense == 271).all()
+    assert cases["all raw"][3].all() and not cases["all empty"][2].any()
+    assert cases["one sample"][0].shape == (1, 1)
+    assert fields("word boundary").sum(1).tolist()[:2] == [256, 33]
+
+
+def test_pack_size_hint_places_lanes_and_cuts_short_ones():
+    """A hint that is wrong must not reach past a lane's span: lane 2's hint
+    is 8 bytes short and lane 4's 8 bytes long. Every lane sits at the offset
+    the hints give, lane 2 is cut at its span, the others are whole, and the
+    returned byte counts are the pack's own, so the caller sees the
+    difference."""
+    case = _case(4)
+    tensors = [torch.from_numpy(a) for a in case]
+    true_payload, true_bytes, true_off = blockspread.pack_lanes_words(*tensors)
+    hint = true_bytes.clone()
+    hint[2] -= 8
+    hint[4] += 8
+    payload, lane_bytes, lane_off = blockspread.pack_lanes_words(*tensors, size_hint=hint)
+    assert torch.equal(lane_bytes, true_bytes)
+    spans = (hint + 3) // 4 * 4
+    assert torch.equal(lane_off, torch.cumsum(spans, 0) - spans)
+    assert len(payload) == int(spans.sum())
+    for lane in range(len(hint)):
+        n = int(min(lane_bytes[lane], spans[lane]))
+        got = payload[lane_off[lane] : lane_off[lane] + n]
+        want = true_payload[true_off[lane] : true_off[lane] + n]
+        assert torch.equal(got, want), f"lane {lane}"
+    assert not payload[lane_off[4] + lane_bytes[4] : lane_off[5]].any()
+
+
 def _typical_case(seed, L=12, S=4096):
     """Lanes as a search leaves them: Laplacian residuals at their own k,
     sparse +-2**20 outliers (codes past 32 bits, which flo_tpu patches),
