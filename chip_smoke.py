@@ -28,22 +28,42 @@ Phases, in order; any failure exits non-zero:
      271-bit codes, only raw lanes, only empty lanes, one sample, lanes
      ending on and one bit past a word boundary), each also with a wrong
      size and with a buffer shorter than the stream;
+   - temporal-masking scan at [16, 2585, 25] (the headline's lanes and hops),
+     at [8, 2585, 25] (a chunk, as the main path calls it), [960, 44, 25],
+     [1, 1, 25], [3, 7, 25], with no hop and with no lane, on an input with
+     NaN and +-inf, and through the dispatcher on a tensor with two leading
+     axes: the same bits as the plain loop;
 4. corpus: every lossless file of tests/vectors/examples decodes on the card
    exactly as on the CPU and validates, and the 9 recoverable ones re-encode
    on the card (integer samples, compat="reference-bugs") byte-identical;
-5. main path: the corpus's stereo chord tiled to 8 clips of 60 s stereo
-   44.1 kHz, bulk-encoded on the card (encode_many, analysis="device": 960
-   lanes x 44100 samples through the search and pack kernels), then
-   bulk-decoded on the card (the LPC kernel); the round trip must be
-   bit-exact and must have launched all three kernels. The same clips with
-   analysis="exact" must give the host C++ encode's bytes. Realtime factors
-   (of the first call and of a second, warm one) and per-stage breakdowns
-   are printed.
+   every lossy file decodes on the card within one i16 step of the CPU
+   decode, with its length, and the five chord presets keep their SNR
+   floors against the lossless chord;
+5. main paths: the corpus's stereo chord tiled to 8 clips of 60 s stereo
+   44.1 kHz.
+   - Lossless: bulk-encoded on the card (encode_many, analysis="device": 960
+     lanes x 44100 samples through the search and pack kernels), then
+     bulk-decoded on the card (the LPC kernel); the round trip must be
+     bit-exact and must have launched all three kernels. The same clips with
+     analysis="exact" must give the host C++ encode's bytes.
+   - Lossy: batch.encode_lossy_many at quality 1 with the "packed"
+     transport (blocks [16, 2585, 2048] through MDCT, SMR with the
+     temporal-masking kernel, quantization and compaction), then
+     batch.decode_many. Every file validates and is marked lossy, lengths
+     are right, the SNR against the input is above the medium floor (30 dB),
+     one clip's CPU encode has the same size (1%) and SNR (0.1 dB), the
+     card's decode is within one i16 step of the CPU decode of the same
+     bytes, the scan kernel was launched and its plain loop never ran on
+     the card.
+   Realtime factors (of the first call and of a second, warm one),
+   per-stage breakdowns, the compression ratio and the lossy path's peak
+   device memory are printed.
 
 The line before the last prints the card's name and power limit; before it,
-a JSON object with each kernel's launches, error, times, bound (the larger
-of its bytes over the HBM rate and its integer operations over the ALU
-rate, from this run's inputs) and share of the bound; the last line is
+a JSON object with each kernel's launches (in its main path's run), error,
+times, bound (the larger of its bytes over the HBM rate and its operations
+over the ALU rate for their type, from this run's inputs) and share of the
+bound; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of flo_tpu.
 """
 
@@ -274,10 +294,11 @@ def check_classes(args) -> None:
 # sheet's table has no integer rate outside the tensor cores).
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 132 * 64 * 1.98e9
+F32_OPS_PER_S = 67e12  # float32 outside the tensor cores, the data sheet's rate
 
 
-def bound(nbytes: float, ops: float):
-    by_bytes, by_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / INT_OPS_PER_S
+def bound(nbytes: float, ops: float, ops_per_s: float = INT_OPS_PER_S):
+    by_bytes, by_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / ops_per_s
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -488,6 +509,77 @@ def phase_kernel_pack(gpu: str, search) -> dict:
             "bound_by": bound_by, "ms_no_wait": nowait_ms, "ms_main_path": main_ms}
 
 
+def masking_case(seed: int, shape):
+    """Seeded masking levels as ``smr`` makes them: dB values in [-120, 100]
+    with runs of -106 (silent bands) and exact zeros."""
+    rng = np.random.default_rng(seed)
+    m = rng.uniform(-120.0, 100.0, shape).astype(np.float32)
+    if m.size:
+        m[..., shape[-2] // 3 : shape[-2] // 2, 3::7] = -106.0
+        m[..., ::5, 11] = 0.0
+    return m
+
+
+def bit_equal(got, want, what: str) -> float:
+    """Check two float32 tensors equal bit for bit, NaN where and only where
+    the other has NaN; returns the max abs error over the finite values."""
+    check(got.shape == want.shape and got.dtype == want.dtype == torch.float32,
+          f"{what}: {got.shape} {got.dtype} against {want.shape} {want.dtype}")
+    nan = torch.isnan(want)
+    check(torch.equal(torch.isnan(got), nan), f"{what}: NaN in other places than the plain loop")
+    bits = lambda t: torch.where(nan, torch.zeros_like(t), t).view(torch.int32)  # noqa: E731
+    finite = torch.isfinite(want)
+    err = float((got - want)[finite].abs().max()) if bool(finite.any()) else 0.0
+    check(torch.equal(bits(got), bits(want)), f"{what}: kernel != plain loop, max abs err {err}")
+    return err
+
+
+def phase_kernel_temporal(gpu: str) -> dict:
+    from flo_torch.ops import cuda_psycho, psycho
+
+    hops = -(-(SECONDS * RATE + 1024) // 1024)
+    lanes = FILES * CHANNELS
+    check(hops == 2585 and lanes == 16, f"headline blocks [{lanes}, {hops}]")
+    shapes = [(lanes, hops, 25), (lanes // 2, hops, 25), (960, 44, 25), (1, 1, 25), (3, 7, 25),
+              (5, 0, 25), (0, 9, 25)]
+    err, cases = 0.0, {}
+    for shape in shapes:
+        m = cases[shape] = torch.from_numpy(masking_case(sum(shape), shape)).to(DEVICE)
+        got = cuda_psycho.temporal_mask_cuda(m)
+        torch.cuda.synchronize()
+        err = max(err, bit_equal(got, psycho.temporal_mask_plain(m), f"temporal_mask {list(shape)}"))
+    odd = masking_case(1, (4, 50, 25))
+    odd[0, 7, 3], odd[1, 20, 24], odd[2, 0, 0], odd[3, 49, 5] = np.nan, np.inf, -np.inf, np.nan
+    odd[1, 30, 24] = np.nan
+    odd = torch.from_numpy(odd).to(DEVICE)
+    got = cuda_psycho.temporal_mask_cuda(odd)
+    bit_equal(got, psycho.temporal_mask_plain(odd), "temporal_mask with NaN and inf")
+    check(bool(torch.isnan(got[0, 7:, 3]).all()) and not bool(torch.isnan(got[0, :7, 3]).any()),
+          "temporal_mask: a NaN must last from its hop to the lane's end")
+    lead = torch.from_numpy(masking_case(2, (2, 3, 7, 25))).to(DEVICE)
+    before = cuda_psycho.LAUNCHES
+    bit_equal(psycho.temporal_mask(lead), psycho.temporal_mask_plain(lead),
+              "temporal_mask through the dispatcher, [2, 3, 7, 25]")
+    check(cuda_psycho.LAUNCHES == before + 1, "the dispatcher did not launch the kernel")
+    log(f"[3 kernel] temporal_mask == plain loop at {', '.join(str(list(sh)) for sh in shapes)}, "
+        "with NaN and +-inf, and through the dispatcher at [2, 3, 7, 25] (the same bits)")
+
+    head, chunk = cases[shapes[0]], cases[shapes[1]]
+    ms = time_ms(lambda: cuda_psycho.temporal_mask_cuda(head), 50)
+    main_ms = time_ms(lambda: cuda_psycho.temporal_mask_cuda(chunk), 50)
+    psycho.temporal_mask_plain(head[:, :64])  # warm-up
+    plain_ms = time_ms(lambda: psycho.temporal_mask_plain(head), 1)
+    # Bytes: the input read once, the output written once. Operations: a
+    # multiply and a maximum an element, in float32.
+    bound_ms, bound_by = bound(2 * tensor_bytes(head), 2 * head.numel(), F32_OPS_PER_S)
+    log(f"[3 kernel] temporal_mask at {list(head.shape)}: kernel {ms:.4f} ms (bound "
+        f"{bound_ms:.4f} ms by {bound_by} = {100 * bound_ms / ms:.1f}%; the chain is "
+        f"{head.shape[1]} dependent steps), plain PyTorch loop {plain_ms:.1f} ms; at "
+        f"{list(chunk.shape)}, as the main path calls it, {main_ms:.4f} ms [{gpu}]")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "ms_main_path": main_ms}
+
+
 #: Lossless corpus files whose encoder input the reference generator's own
 #: Raw-frame defect destroyed (tests/test_compat.py): not re-encodable.
 UNRECOVERABLE = {"silence_1sec.flo", "white_noise.flo"}
@@ -498,12 +590,13 @@ def phase_corpus(gpu: str) -> None:
     from flo_torch.container import reader
     from flo_torch.lossless import decoder, encoder
 
-    names, reencoded = [], []
+    names, reencoded, lossy = [], [], {}
     for p in sorted(EXAMPLES.glob("*.flo")):
         data = p.read_bytes()
         flo = reader.read(data)
         if any(f.frame_type == 253 for f in flo.frames):
-            continue  # lossy (Transform frames): not ported yet
+            lossy[p.stem] = lossy_file_on_card(p.name, data, flo)
+            continue
         on_card = flo_torch.decode(data, device=DEVICE)
         on_cpu = flo_torch.decode(data, device="cpu")
         check(np.array_equal(on_card, on_cpu), f"{p.name}: card decode != CPU decode")
@@ -524,6 +617,49 @@ def phase_corpus(gpu: str) -> None:
     log(f"[4 corpus] {len(names)} lossless files decoded on the card == CPU decode, "
         f"all validate; {len(reencoded)} re-encoded on the card (compat=\"reference-bugs\") "
         f"byte-identical [{gpu}]")
+    check(len(lossy) == 7, f"expected 7 lossy corpus files, found {len(lossy)}")
+    ref = flo_torch.decode((EXAMPLES / "chord_cmajor_stereo.flo").read_bytes(), device=DEVICE)
+    snrs = [snr_db(ref, lossy[f"lossy_chord_{name}"]) for name in CHORD_FLOORS]
+    for (name, floor), snr, prev in zip(CHORD_FLOORS.items(), snrs, [-1e9] + snrs):
+        check(snr > floor and snr > prev, f"lossy_chord_{name}: SNR {snr:.2f} dB on the card "
+              f"(floor {floor}, the preset below {prev:.2f})")
+    log(f"[4 corpus] {len(lossy)} lossy files decoded on the card within one i16 step of the "
+        f"CPU decode, lengths right; chord presets' SNR "
+        f"{', '.join(f'{n} {v:.2f}' for n, v in zip(CHORD_FLOORS, snrs))} dB, above their "
+        f"floors and rising [{gpu}]")
+
+
+#: SNR floors of the reference's chord files by preset (tests/test_lossy.py).
+CHORD_FLOORS = {"low": 20.0, "medium": 30.0, "high": 35.0, "veryhigh": 40.0,
+                "transparent": 45.0}
+I16_STEP = np.float32(1.0 / 32767.0)
+
+
+def snr_db(ref, out) -> float:
+    m = min(len(ref), len(out))
+    noise = (out[:m] - ref[:m]).astype(np.float64)
+    return float(10 * np.log10(np.sum(ref[:m].astype(np.float64) ** 2)
+                               / max(np.sum(noise**2), 1e-30)))
+
+
+def within_one_step(got, want, what: str) -> None:
+    """Two decodes of the same bytes: equal length, every sample within one
+    i16 step, compared in the i16 domain (near full scale a float32 ulp is
+    0.002 of a step)."""
+    check(got.dtype == np.float32 and got.shape == want.shape and np.isfinite(got).all(),
+          f"{what}: {got.shape} {got.dtype} against {want.shape}")
+    steps = np.abs(np.rint(got / I16_STEP) - np.rint(want / I16_STEP))
+    check(steps.max(initial=0) <= 1, f"{what}: {steps.max(initial=0):.0f} i16 steps apart")
+
+
+def lossy_file_on_card(name: str, data: bytes, flo):
+    import flo_torch
+
+    on_card = flo_torch.decode(data, device=DEVICE)
+    within_one_step(on_card, flo_torch.decode(data, device="cpu"), f"{name}: card against CPU")
+    check(len(on_card) == (len(flo.frames) - 1) * 1024 * flo.header.channels, f"{name}: length")
+    check(flo_torch.validate(data) and flo.header.is_lossy, f"{name}: validate / lossy flag")
+    return on_card
 
 
 def headline_clips():
@@ -538,10 +674,15 @@ def headline_clips():
 
 
 def kernel_modules():
-    from flo_torch.ops import cuda_lpc, cuda_ricepack, cuda_select
+    from flo_torch.ops import cuda_lpc, cuda_psycho, cuda_ricepack, cuda_select
 
     return {"lpc_reconstruct": cuda_lpc, "lossless_select": cuda_select,
-            "rice_pack": cuda_ricepack}
+            "rice_pack": cuda_ricepack, "temporal_mask": cuda_psycho}
+
+
+#: The kernels each main path must launch.
+LOSSLESS_KERNELS = ("lpc_reconstruct", "lossless_select", "rice_pack")
+LOSSY_KERNELS = ("temporal_mask",)
 
 
 def phase_main_path(gpu: str, clips) -> dict:
@@ -564,9 +705,9 @@ def phase_main_path(gpu: str, clips) -> dict:
     t0 = time.perf_counter()
     outs = decoder.decode_many([reader.read(b) for b in encoded], device=DEVICE)
     dec_s = time.perf_counter() - t0
-    launches = {name: m.LAUNCHES for name, m in mods.items()}
+    launches = {name: mods[name].LAUNCHES for name in LOSSLESS_KERNELS}
     for name, n in launches.items():
-        check(n > 0, f"the main path never launched {name}")
+        check(n > 0, f"the lossless main path never launched {name}")
     for i, (clip, out) in enumerate(zip(clips, outs)):
         want = convert.i32_to_f32(convert.f32_to_i32(torch.from_numpy(clip))).numpy()
         check(out.shape == want.shape and np.isfinite(out).all(), f"clip {i}: shape/finite")
@@ -616,6 +757,25 @@ def phase_main_path(gpu: str, clips) -> dict:
     return launches
 
 
+class Laps:
+    """Stage times on the host clock, each stage synchronised to its end."""
+
+    def __init__(self, names):
+        self.stages = dict.fromkeys(names, 0.0)
+        torch.cuda.synchronize()
+        self.last = time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.stages[name] += now - self.last
+        self.last = now
+
+    def report(self, gpu: str) -> str:
+        parts = [f"{n} {1e3 * v:.1f} ms" for n, v in self.stages.items()]
+        return ", ".join(parts) + f" (total {1e3 * sum(self.stages.values()):.1f} ms) [{gpu}]"
+
+
 def encode_breakdown(clips, encoded, gpu: str) -> str:
     """The bulk encode's stages, each synchronised and timed to its end on
     the host clock, summed over the chunks; the bytes must be encoded's."""
@@ -625,16 +785,9 @@ def encode_breakdown(clips, encoded, gpu: str) -> str:
 
     kinds, orders, max_order = encoder._candidate_plan(5)
     is_lpc = tuple(kd == "lpc" for kd in kinds)
-    names = ["marshal", "upload", "analysis", "select", "pack", "download", "assembly+writer"]
-    stages = dict.fromkeys(names, 0.0)
-    torch.cuda.synchronize()
-    last = [time.perf_counter()]
-
-    def lap(name):
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        stages[name] += now - last[0]
-        last[0] = now
+    laps = Laps(["marshal", "upload", "analysis", "select", "pack", "download",
+                 "assembly+writer"])
+    lap = laps.lap
 
     lanes, nvalid_f, all_frames, slots = encoder._marshal(clips, CHANNELS, RATE)
     lap("marshal")
@@ -664,8 +817,7 @@ def encode_breakdown(clips, encoded, gpu: str) -> str:
     out = [writer.write(RATE, CHANNELS, 16, 5, f, b"") for f in all_frames]
     lap("assembly+writer")
     check(out == encoded, "the staged encode's bytes differ from encode_many's")
-    parts = [f"{n} {1e3 * v:.1f} ms" for n, v in stages.items()]
-    return ", ".join(parts) + f" (total {1e3 * sum(stages.values()):.1f} ms) [{gpu}]"
+    return laps.report(gpu)
 
 
 def decode_breakdown(encoded, gpu: str) -> str:
@@ -697,10 +849,210 @@ def decode_breakdown(encoded, gpu: str) -> str:
     return ", ".join(parts) + f" [{gpu}]"
 
 
+LOSSY_QUALITY = 1  # the medium preset, as bench.py's headline pass
+
+
+def plain_loop_guard():
+    """Replace the scan's plain loop with one that counts its calls on CUDA
+    tensors; returns (restore, calls)."""
+    from flo_torch.ops import psycho
+
+    plain, calls = psycho.temporal_mask_plain, []
+
+    def guarded(masking):
+        if masking.device.type == "cuda":
+            calls.append(tuple(masking.shape))
+        return plain(masking)
+
+    psycho.temporal_mask_plain = guarded
+
+    def restore():
+        psycho.temporal_mask_plain = plain
+
+    return restore, calls
+
+
+def phase_lossy_path(gpu: str, clips) -> dict:
+    """bench.py's headline lossy pass (bench.py:167-168), through the bulk
+    facade: lossy encode of the headline clips on the card at the medium
+    preset with the "packed" transport, then bulk decode on the card.
+    Returns the scan kernel's launches in that run."""
+    from flo_torch import batch, lib
+    from flo_torch.lossy import decoder as ldec
+    from flo_torch.lossy import encoder as lenc
+    from flo_torch.lossy.presets import QUALITY_U8_TO_F32
+
+    audio_s = FILES * SECONDS
+    mods = kernel_modules()
+    restore, plain_calls = plain_loop_guard()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for m in mods.values():
+        m.LAUNCHES = 0
+    try:
+        t0 = time.perf_counter()
+        encoded = batch.encode_lossy_many(clips, RATE, CHANNELS, quality=LOSSY_QUALITY,
+                                          transport_dtype="packed", device=DEVICE)
+        enc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        outs = batch.decode_many(encoded, device=DEVICE)
+        dec_s = time.perf_counter() - t0
+        launches = {name: mods[name].LAUNCHES for name in LOSSY_KERNELS}
+        for name, n in launches.items():
+            check(n > 0, f"the lossy main path never launched {name}")
+        check(not plain_calls, f"the scan's plain loop ran on the card: {plain_calls}")
+
+        hops = -(-(SECONDS * RATE + 1024) // 1024)
+        snrs = []
+        for i, (clip, data, out) in enumerate(zip(clips, encoded, outs)):
+            info = lib.info(data)
+            check(lib.validate(data) and info.crc_valid, f"lossy clip {i}: CRC")
+            check(info.is_lossy and info.lossy_quality == LOSSY_QUALITY and info.channels == CHANNELS
+                  and info.sample_rate == RATE, f"lossy clip {i}: header {info}")
+            check(out.dtype == np.float32 and out.shape == ((hops - 1) * 1024 * CHANNELS,)
+                  and np.isfinite(out).all(), f"lossy clip {i}: output {out.shape} {out.dtype}")
+            snrs.append(snr_db(clip, out))
+            check(snrs[-1] > CHORD_FLOORS["medium"], f"lossy clip {i}: SNR {snrs[-1]:.2f} dB")
+
+        # Warm calls: the bulk facade again, then the encoder and decoder
+        # modules alone (no analysis metadata: what bench.py times).
+        t0 = time.perf_counter()
+        again = batch.encode_lossy_many(clips, RATE, CHANNELS, quality=LOSSY_QUALITY,
+                                        transport_dtype="packed", device=DEVICE)
+        enc2_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        outs2 = batch.decode_many(encoded, device=DEVICE)
+        dec2_s = time.perf_counter() - t0
+        q = QUALITY_U8_TO_F32[LOSSY_QUALITY]
+        t0 = time.perf_counter()
+        bare = lenc.encode_many(clips, RATE, CHANNELS, q, transport_dtype="packed",
+                                device=DEVICE)
+        bare_s = time.perf_counter() - t0
+        peak_mb = torch.cuda.max_memory_allocated() / 1e6
+        for i, (a, b) in enumerate(zip(outs, outs2)):
+            within_one_step(b, a, f"lossy clip {i}: second decode against the first")
+
+        # The card against the CPU: one clip's encode (size and SNR), and
+        # the decode of the same bytes.
+        t0 = time.perf_counter()
+        cpu_data = lenc.encode_many(clips[:1], RATE, CHANNELS, q, transport_dtype="packed",
+                                    device="cpu")[0]
+        cpu_enc_s = time.perf_counter() - t0
+        alone = lenc.encode_many(clips[:1], RATE, CHANNELS, q, transport_dtype="packed",
+                                 device=DEVICE)[0]
+        check(abs(len(alone) - len(cpu_data)) <= 0.01 * len(cpu_data),
+              f"card encode {len(alone)} bytes, CPU encode {len(cpu_data)}: past 1%")
+        cpu_snr = snr_db(clips[0], ldec.decode(cpu_data, device="cpu"))
+        card_snr = snr_db(clips[0], ldec.decode(alone, device=DEVICE))
+        check(abs(card_snr - cpu_snr) <= 0.1, f"card SNR {card_snr:.3f} dB, CPU {cpu_snr:.3f} dB")
+        for i in (0, FILES - 1):
+            within_one_step(outs[i], lib.decode(encoded[i], device="cpu"),
+                            f"lossy clip {i}: card decode against CPU decode")
+    finally:
+        restore()
+
+    raw_mb = sum(c.size for c in clips) * 2 / 1e6
+    lossy_mb = sum(map(len, bare)) / 1e6
+    same = "equal" if [len(b) for b in again] == [len(b) for b in encoded] else "other"
+    log(f"[5 lossy] {FILES} x {SECONDS} s stereo {RATE} Hz, quality {LOSSY_QUALITY}, packed: "
+        f"blocks [{FILES * CHANNELS}, {hops}, 2048]; {lossy_mb:.3f} MB from {raw_mb:.1f} MB of "
+        f"16-bit PCM = {raw_mb / lossy_mb:.2f}x; every file validates, is lossy, has its length; "
+        f"SNR {min(snrs):.2f}-{max(snrs):.2f} dB; one clip alone on the card {len(alone)} bytes, "
+        f"{card_snr:.3f} dB, on the CPU {len(cpu_data)} bytes, {cpu_snr:.3f} dB "
+        f"(CPU encode {cpu_enc_s:.3f} s); card decode within one i16 step of the CPU decode; "
+        f"a second encode's sizes {same}; launches {launches}, plain loop on the card 0")
+    log(f"[5 lossy] batch.encode_lossy_many on the card {enc_s:.3f} s = {audio_s / enc_s:.1f}x "
+        f"realtime (second call {enc2_s:.3f} s = {audio_s / enc2_s:.1f}x); "
+        f"lossy.encoder.encode_many, no analysis metadata, {bare_s:.3f} s = "
+        f"{audio_s / bare_s:.1f}x [{gpu}]")
+    log(f"[5 lossy] batch.decode_many on the card {dec_s:.3f} s = {audio_s / dec_s:.1f}x "
+        f"realtime (second call {dec2_s:.3f} s = {audio_s / dec2_s:.1f}x); peak device memory "
+        f"of the lossy phase {peak_mb:.1f} MB [{gpu}]")
+    log(f"[5 lossy] encode breakdown: {lossy_encode_breakdown(clips, bare, gpu)}")
+    log(f"[5 lossy] decode breakdown: {lossy_decode_breakdown(bare, outs, gpu)}")
+    return launches
+
+
+def lossy_encode_breakdown(clips, encoded, gpu: str) -> str:
+    """The bulk lossy encode's stages, summed over the two chunks; the
+    files must have lossy.encoder.encode_many's sizes (1%)."""
+    from flo_torch.container import writer
+    from flo_torch.lossy import encoder as lenc
+    from flo_torch.lossy.presets import QUALITY_U8_TO_F32
+    from flo_torch.ops import compact, mdct, psycho
+
+    thr = lenc.smr_threshold(QUALITY_U8_TO_F32[LOSSY_QUALITY])
+    laps = Laps(["marshal", "upload", "MDCT", "SMR", "quantize", "compact+size read",
+                 "download", "sparse RLE", "assembly+writer"])
+    stacked, hops = lenc._marshal(clips, CHANNELS, "packed")
+    laps.lap("marshal")
+    parts = []
+    for lo, hi in lenc._chunk_bounds(len(hops), CHANNELS):
+        pcm = torch.from_numpy(stacked[lo:hi]).to(DEVICE)
+        laps.lap("upload")
+        coeffs = mdct.forward(lenc._blocks(pcm), lenc.BLOCK, lenc.WINDOW)
+        laps.lap("MDCT")
+        smr = psycho.smr(coeffs, RATE, lenc.BLOCK)
+        laps.lap("SMR")
+        q, sf = lenc._quantize_gated(coeffs, smr, RATE, thr)
+        laps.lap("quantize")
+        entries, row_nnz = compact.compact_nonzeros(q.reshape(-1, q.shape[-1]))
+        laps.lap("compact+size read")
+        parts.append((entries.cpu().numpy(), row_nnz.cpu().numpy(), sf.cpu().numpy()))
+        laps.lap("download")
+    t_max = max(hops)
+    flat, dense = lenc._sparse_streams(parts, t_max)
+    laps.lap("sparse RLE")
+    sf = np.concatenate([p[2] for p in parts])
+    out = [writer.write(RATE, CHANNELS, 16, 5, frames, b"", lossy=True, lossy_quality=LOSSY_QUALITY)
+           for frames in lenc._assemble_files(flat, dense, sf, hops, CHANNELS, t_max)]
+    laps.lap("assembly+writer")
+    for i, (a, b) in enumerate(zip(out, encoded)):
+        check(abs(len(a) - len(b)) <= 0.01 * len(b), f"staged lossy encode, clip {i}: "
+              f"{len(a)} bytes against encode_many's {len(b)}")
+    nnz = sum(len(p[0]) for p in parts)
+    return (f"{laps.report(gpu)}; {nnz} nonzeros of {stacked.shape[0] * t_max * 1024} "
+            f"coefficients, staged bytes {'equal to' if out == encoded else 'not equal to'} "
+            "encode_many's")
+
+
+def lossy_decode_breakdown(encoded, outs, gpu: str) -> str:
+    """The bulk lossy decode's stages, summed over the two chunks; the
+    samples must be decode_many's (one i16 step)."""
+    from flo_torch.container import reader
+    from flo_torch.lossy import decoder as ldec
+    from flo_torch.ops import compact
+
+    laps = Laps(["parse", "sparse parse", "upload", "expand", "dequantize+IMDCT+overlap-add",
+                 "download", "scale+interleave"])
+    flos = [reader.read(b) for b in encoded]
+    n, C, rate, counts, sf, streams = ldec._parse_batch(flos)
+    laps.lap("parse")
+    entries_all, stream_nnz = ldec._sparse_entries(streams, n // 2)
+    laps.lap("sparse parse")
+    got = [None] * len(flos)
+    for lo, entries, row_nnz, sf_c in ldec._chunks(counts, C, sf, entries_all, stream_nnz):
+        e, g, s = ldec.to_device(entries, row_nnz, sf_c, device=DEVICE)
+        laps.lap("upload")
+        N, T = s.shape[:2]
+        q = compact.expand_nonzeros(e, g, N * T * C, n // 2).reshape(N, T, C, n // 2)
+        laps.lap("expand")
+        pcm = ldec._to_i16(ldec._decode_blocks(q, s, rate, n))
+        laps.lap("dequantize+IMDCT+overlap-add")
+        host = pcm.cpu().numpy()
+        laps.lap("download")
+        ldec._finish_chunk(host, lo, counts, got)
+        laps.lap("scale+interleave")
+    for i, (a, b) in enumerate(zip(got, outs)):
+        within_one_step(a, b, f"staged lossy decode, clip {i}")
+    return laps.report(gpu)
+
+
 KERNELS = {
     "lpc_reconstruct": ("flo_torch/csrc/lpc_reconstruct.cu", "flo_tpu/ops/pallas_lpc.py:52"),
     "lossless_select": ("flo_torch/csrc/lossless_select.cu", "flo_tpu/ops/select.py:187"),
     "rice_pack": ("flo_torch/csrc/rice_pack.cu", "flo_tpu/ops/blockspread.py:647"),
+    "temporal_mask": ("flo_torch/csrc/temporal_mask.cu", "flo_tpu/ops/psycho.py:126"),
 }
 
 
@@ -715,8 +1067,10 @@ def main() -> int:
     measured["lossless_select"], search = phase_kernel_select(gpu, clips)
     measured["rice_pack"] = phase_kernel_pack(gpu, search)
     del search
+    measured["temporal_mask"] = phase_kernel_temporal(gpu)
     phase_corpus(gpu)
     launches = phase_main_path(gpu, clips)
+    launches.update(phase_lossy_path(gpu, clips))
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **measured[name],

@@ -1,7 +1,8 @@
-"""Bulk (multi-file) API, lossless half: one device pass for many files.
+"""Bulk (multi-file) API: one device pass for many files.
 
-The counterpart of the reference's ``batch.py`` for lossless files. Lossy
-bulk encode and decode are not ported yet (ROADMAP.md section 1, items 8-9).
+The counterpart of the reference's ``batch.py``: lossless and lossy bulk
+encode, and a bulk decode that sorts its files into lossless and lossy
+batches.
 """
 
 from __future__ import annotations
@@ -13,10 +14,13 @@ import numpy as np
 
 from .container import reader, writer
 from .core.analysis_batch import analyze_many
-from .core.constants import FrameType
 from .futures import BulkFuture
 from .lossless import decoder as _lossless_decoder
 from .lossless import encoder as _lossless_encoder
+from .lib import is_transform
+from .lossy import decoder as _lossy_decoder
+from .lossy import encoder as _lossy_encoder
+from .lossy.presets import QUALITY_U8_TO_F32
 
 
 def _analyzed_metas_async(samples_list, sample_rate, channels, metadata_list, analyze):
@@ -100,15 +104,87 @@ def encode_many(
     ).result()
 
 
+def encode_lossy_many_async(
+    samples_list: Sequence[np.ndarray],
+    sample_rate: int,
+    channels: int,
+    quality: int = 2,
+    metadata_list: Optional[Sequence[bytes]] = None,
+    transport_dtype=np.float32,
+    analyze: bool = True,
+    *,
+    device="cuda",
+) -> BulkFuture:
+    """Lossy bulk encode, dispatched immediately; quality is the u8 preset.
+
+    The device MDCT work is dispatched before the host analysis pass runs
+    (see :func:`encode_many_async`); metadata lands in the writer at collect
+    time."""
+    q_u8 = min(int(quality), 4)
+    fut = _lossy_encoder.encode_many_to_frames_async(
+        samples_list, sample_rate, channels, QUALITY_U8_TO_F32[q_u8], transport_dtype,
+        device=device,
+    )
+    get_metas = _analyzed_metas_async(samples_list, sample_rate, channels, metadata_list, analyze)
+
+    def fin(frames_per_file):
+        metas = get_metas() or [b""] * len(samples_list)
+        return [
+            writer.write(
+                int(sample_rate), int(channels), 16, 5, frames, meta,
+                lossy=True, lossy_quality=q_u8,
+            )
+            for frames, meta in zip(frames_per_file, metas)
+        ]
+
+    return fut.then(fin)
+
+
+def encode_lossy_many(
+    samples_list: Sequence[np.ndarray],
+    sample_rate: int,
+    channels: int,
+    quality: int = 2,
+    metadata_list: Optional[Sequence[bytes]] = None,
+    transport_dtype=np.float32,
+    analyze: bool = True,
+    *,
+    device="cuda",
+) -> List[bytes]:
+    """Lossy bulk encode with the analysis metadata embedded; quality u8 0-4."""
+    return encode_lossy_many_async(
+        samples_list, sample_rate, channels, quality, metadata_list, transport_dtype,
+        analyze, device=device,
+    ).result()
+
+
 def decode_many_async(datas: Sequence[bytes], *, device="cuda") -> BulkFuture:
-    """Bulk decode of lossless files, dispatched immediately; ``result()``
-    gives one interleaved float32 array per file, in input order."""
+    """Bulk auto-detecting decode: sorts the files into lossless and lossy
+    batches (each one dispatched device pass; lossy files grouped by rate
+    and channels); ``result()`` gives one interleaved float32 array per
+    file, in input order."""
     flos = [reader.read(d) for d in datas]
-    if any(f.frame_type == int(FrameType.TRANSFORM) for flo in flos for f in flo.frames):
-        raise NotImplementedError(
-            "lossy (Transform-frame) decode is not ported yet: ROADMAP.md section 1, item 9"
-        )
-    return _lossless_decoder.decode_many_async(flos, device=device)
+    outs: List[np.ndarray] = [np.zeros(0, np.float32)] * len(flos)
+    lossless = [i for i, flo in enumerate(flos) if not is_transform(flo)]
+    groups: dict = {}  # lossy bulk needs one rate and channel count a batch
+    for i, flo in enumerate(flos):
+        if is_transform(flo):
+            groups.setdefault((flo.header.sample_rate, flo.header.channels), []).append(i)
+    pending = []  # (indices, future)
+    if lossless:
+        pending.append((lossless, _lossless_decoder.decode_many_async(
+            [flos[i] for i in lossless], device=device)))
+    for idxs in groups.values():
+        pending.append((idxs, _lossy_decoder.decode_many_async(
+            [flos[i] for i in idxs], device=device)))
+
+    def fin() -> List[np.ndarray]:
+        for idxs, fut in pending:
+            for i, out in zip(idxs, fut.result()):
+                outs[i] = out
+        return outs
+
+    return BulkFuture(fin)
 
 
 def decode_many(datas: Sequence[bytes], *, device="cuda") -> List[np.ndarray]:

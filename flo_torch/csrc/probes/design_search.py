@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""The design search of the three hand-written kernels (LPC reconstruction,
-candidate search, Rice pack), on one CUDA card.
+"""The design search of the four hand-written kernels (LPC reconstruction,
+candidate search, Rice pack, temporal-masking scan), on one CUDA card.
 
-    python3 flo_torch/csrc/probes/design_search.py [lpc] [select] [pack]
+    python3 flo_torch/csrc/probes/design_search.py [lpc] [select] [pack] [scan]
 
-from the repository root; with no argument all three parts run. Builds
-``lpc_designs.cu``, ``select_designs.cu`` and ``pack_designs.cu`` (every step
+from the repository root; with no argument all four parts run. Builds
+``lpc_designs.cu``, ``select_designs.cu``, ``pack_designs.cu`` and
+``scan_designs.cu`` (every step
 of each kernel's design search, one library each, with the port's nvcc flags,
 into ``build/flo_torch/probes/``), checks every design equal to the plain
 version on what it is timed on, then times the designs against each other
@@ -21,14 +22,19 @@ twice, in turns (A B .. B A after a warm-up, 10 launches each, CUDA events):
   the worst-case buffer the main path gives it, with and without the
   search's byte counts as a hint; before that, the first packer (design 0)
   pass by pass, and the shipped wrapper with and without its word-count
-  wait.
+  wait;
+- the scan at [16, 2585, 25] (the headline's lanes and hops) and at
+  [8, 2585, 25] (a chunk of the main path), each design equal to the plain
+  loop there and at [3, 7, 25], on an input with NaN; its cuts (a part left
+  out) are timed only.
 
 Prints a line for each design and input, with the card's name and power
 limit. The port ships design 4 of the reconstruction
 (``csrc/lpc_reconstruct.cu``), design 2 of the search
-(``csrc/lossless_select.cu``) and one design of the pack
-(``csrc/rice_pack.cu``, whose header names it); this script is not part of
-it.
+(``csrc/lossless_select.cu``), one design of the pack
+(``csrc/rice_pack.cu``, whose header names it) and one of the scan
+(``csrc/temporal_mask.cu``; ``SCAN_DESIGNS`` marks it); this script is not
+part of it.
 """
 
 from __future__ import annotations
@@ -71,6 +77,16 @@ SELECT_DESIGNS = (
     "general kernel: strided samples from L1/L2, 12 taps every candidate",
     "lane streamed through shared memory, per-plan taps, 256 threads",
     "lane streamed through shared memory, per-plan taps, 128 threads: shipped",
+)
+#: scan_designs.cu's designs, in order: (what it is, whether it computes the
+#: scan: a cut leaves a part out and is only timed).
+SCAN_DESIGNS = (
+    ("a thread a chain, 32 hops of loads in flight in registers, NaN rule on the chain", True),
+    ("a block a lane, tiles of 128 hops through shared memory, NaN off the chain", True),
+    ("+ a tile's 128 chain inputs taken into registers first: shipped", True),
+    ("tiles of 32 hops, one warp a block", True),
+    ("cut: tiles of 128 hops without the chain", False),
+    ("cut: tiles of 128 hops without the global loads and stores", False),
 )
 
 
@@ -437,8 +453,45 @@ def search_pack(gpu: str, clips) -> None:
         del want
 
 
+def search_scan(gpu: str, clips) -> None:
+    from flo_torch.ops import psycho
+
+    lib = build("scan_designs")
+    lib.flo_scan_design.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                                    ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p]
+    smoke.check(lib.flo_scan_designs() == len(SCAN_DESIGNS), "scan design count")
+
+    def run(design, masking):
+        out = torch.empty_like(masking)
+        rc = lib.flo_scan_design(masking.data_ptr(), out.data_ptr(), masking.shape[0],
+                                 masking.shape[1], design, torch.cuda.current_stream().cuda_stream)
+        smoke.check(rc == 0, f"scan design {design}: CUDA error {rc}")
+        return out
+
+    hops = -(-(smoke.SECONDS * smoke.RATE + 1024) // 1024)
+    lanes = smoke.FILES * smoke.CHANNELS
+    odd = smoke.masking_case(3, (3, 7, 25))
+    odd[1, 2, 4] = float("nan")
+    cases = {shape: torch.from_numpy(smoke.masking_case(sum(shape), shape)).to(smoke.DEVICE)
+             for shape in ((lanes, hops, 25), (lanes // 2, hops, 25))}
+    cases["[3, 7, 25] with NaN"] = torch.from_numpy(odd).to(smoke.DEVICE)
+    for what, m in cases.items():
+        want = psycho.temporal_mask_plain(m)
+        fns = {}
+        for d, (_, whole) in enumerate(SCAN_DESIGNS):
+            if whole:
+                smoke.bit_equal(run(d, m), want, f"scan design {d} at {what}")
+            fns[d] = lambda d=d: run(d, m)
+        if m.shape[1] != hops:
+            continue
+        for d, ms in time_in_turns(fns, iters=50).items():
+            smoke.log(f"[design] temporal_mask {list(m.shape)} design {d} ({SCAN_DESIGNS[d][0]}): "
+                      f"{ms[0]:.4f} / {ms[1]:.4f} ms [{gpu}]")
+
+
 def main(argv) -> int:
-    parts = {"lpc": search_lpc, "select": search_select, "pack": search_pack}
+    parts = {"lpc": search_lpc, "select": search_select, "pack": search_pack,
+             "scan": search_scan}
     chosen = argv or list(parts)
     for name in chosen:
         if name not in parts:

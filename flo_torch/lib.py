@@ -1,5 +1,5 @@
 """Top-level API facade: the part of the reference's ``lib.py`` ported so far
-(lossless encode, decode, info, validate)."""
+(lossless and lossy encode, auto-detecting decode, info, validate)."""
 
 from __future__ import annotations
 
@@ -14,6 +14,9 @@ from .core.constants import FrameType
 from .core.metadata import FloMetadata
 from .lossless import decoder as lossless_decoder
 from .lossless import encoder as lossless_encoder
+from .lossy import decoder as lossy_decoder
+from .lossy import encoder as lossy_encoder
+from .lossy.presets import QUALITY_U8_TO_F32, QualityPreset
 
 
 @dataclass
@@ -53,14 +56,77 @@ def encode(
     )
 
 
+def encode_lossy(
+    samples,
+    sample_rate: int,
+    channels: int,
+    quality: int = 2,
+    bit_depth: int = 16,
+    metadata: bytes = b"",
+    *,
+    analyze: bool = True,
+    device="cuda",
+) -> bytes:
+    """Lossy encode on ``device``; quality u8 0-4 -> f32 preset map
+    (lib.rs:135-166)."""
+    return encode_transform(
+        samples, sample_rate, channels, bit_depth, QUALITY_U8_TO_F32[min(int(quality), 4)],
+        metadata, analyze=analyze, device=device,
+    )
+
+
+def encode_transform(
+    samples,
+    sample_rate: int,
+    channels: int,
+    bit_depth: int = 16,
+    quality: float = 0.55,
+    metadata: bytes = b"",
+    *,
+    analyze: bool = True,
+    device="cuda",
+) -> bytes:
+    """Lossy encode on ``device`` with continuous quality 0.0-1.0 (the u8
+    preset facade is :func:`encode_lossy`)."""
+    samples = np.asarray(samples, dtype=np.float32).reshape(-1)
+    q = min(max(float(quality), 0.0), 1.0)
+    if analyze:
+        metadata = analyze_one(metadata, samples, sample_rate, channels)
+    return lossy_encoder.encode(
+        samples, sample_rate, channels, q, metadata, bit_depth, device=device
+    )
+
+
+def encode_with_bitrate(
+    samples,
+    sample_rate: int,
+    channels: int,
+    bitrate_kbps: int,
+    bit_depth: int = 16,
+    metadata: bytes = b"",
+    *,
+    analyze: bool = True,
+    device="cuda",
+) -> bytes:
+    """Lossy encode on ``device`` targeting a bitrate (lib.rs:180-206)."""
+    preset = QualityPreset.from_bitrate(bitrate_kbps, sample_rate, channels)
+    return encode_lossy(
+        samples, sample_rate, channels, int(preset), bit_depth, metadata,
+        analyze=analyze, device=device,
+    )
+
+
+def is_transform(flo) -> bool:
+    """Whether a parsed file holds any Transform frame (a lossy file)."""
+    return any(f.frame_type == int(FrameType.TRANSFORM) for f in flo.frames)
+
+
 def decode(data: bytes, *, device="cuda") -> np.ndarray:
-    """Decode flo bytes to interleaved float32 samples, reconstructing on
-    ``device``. Lossy (Transform-frame) files are not ported yet."""
+    """Auto-detecting decode (lib.rs:296-315) to interleaved float32 samples
+    on ``device``: any Transform frame -> lossy."""
     flo = reader.read(data)
-    if any(f.frame_type == int(FrameType.TRANSFORM) for f in flo.frames):
-        raise NotImplementedError(
-            "lossy (Transform-frame) decode is not ported yet: ROADMAP.md section 1, item 9"
-        )
+    if is_transform(flo):
+        return lossy_decoder.decode_file(flo, device=device)
     return lossless_decoder.decode_file(flo, device=device)
 
 

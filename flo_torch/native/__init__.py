@@ -1,11 +1,13 @@
 """Native (C++) host code with a build at first use and ctypes binding.
 
-The port's copy of the reference's host natives, cut down to the four sources
+The port's copy of the reference's host natives, cut down to the five sources
 the port calls:
 
 - rice.cpp     — Rice bitstream pack/unpack (rice.rs equivalent)
-- blockpack.cpp — the bulk encode's fused f32 -> int32 lane marshal
-                 (``encode_marshal_f32``)
+- blockpack.cpp — the bulk encodes' fused f32 -> int32 marshals
+                 (``encode_marshal_f32`` lossless, ``lossy_marshal_f32`` lossy)
+- sparse.cpp   — sparse run-length coefficient coder of the lossy frames
+                 (dense rows or sorted CSR entries in, entries or rows out)
 - encode.cpp   — lossless best-of-N candidate search (encoder.rs:173-217 +
                  lpc.rs), the single-file host encode
 - analysis.cpp — BLAKE3 (parallel tree), K-weighting biquads, true-peak FIR
@@ -37,6 +39,7 @@ _libs: dict = {}
 
 _i64p = ctypes.POINTER(ctypes.c_int64)
 _i32p = ctypes.POINTER(ctypes.c_int32)
+_i16p = ctypes.POINTER(ctypes.c_int16)
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _f64p = ctypes.POINTER(ctypes.c_double)
 _f32p = ctypes.POINTER(ctypes.c_float)
@@ -56,6 +59,29 @@ _SIGNATURES = {
             _f32p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
             ctypes.c_int64, ctypes.c_float, ctypes.c_float, _u8p, _i64p,
             _i32p,
+        ],
+        "lossy_marshal_f32": [
+            _f32p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_float, _i32p,
+        ],
+    },
+    "sparse": {
+        "sparse_sizes": [_i16p, ctypes.c_int64, ctypes.c_int64, _i64p],
+        "sparse_encode": [_i16p, ctypes.c_int64, ctypes.c_int64, _i64p, _u8p],
+        "sparse_decode": [
+            _u8p, _i64p, _i64p, ctypes.c_int64, ctypes.c_int64, _i16p
+        ],
+        "sparse_entry_counts": [
+            _u8p, _i64p, _i64p, ctypes.c_int64, ctypes.c_int64, _i64p
+        ],
+        "sparse_decode_entries": [
+            _u8p, _i64p, _i64p, _i64p, ctypes.c_int64, ctypes.c_int64, _i32p
+        ],
+        "sparse_sizes_csr": [
+            _i32p, _i64p, _i32p, ctypes.c_int64, ctypes.c_int64, _i64p
+        ],
+        "sparse_encode_csr": [
+            _i32p, _i64p, _i32p, ctypes.c_int64, ctypes.c_int64, _i64p, _u8p
         ],
     },
     "encode": {
@@ -244,6 +270,151 @@ def encode_marshal_f32(flat, total: int, C: int, spf: int, thresh: float,
             _ptr(lanes[row0:], ctypes.c_int32),
         )
     return int(n_active), silent.astype(bool), active_idx[:n_active]
+
+
+def lossy_marshal_f32(flat, n: int, C: int, hop: int, scale: float,
+                      rows: np.ndarray) -> bool:
+    """One file's interleaved f32 -> pre-rolled i32 channel rows
+    ([C, stride], pre-zeroed) in one pass: sample j of channel c at
+    rows[c, hop+j] = clamp(rint(x*scale)). Returns False when the native
+    lib is unavailable."""
+    lib = _load("blockpack")
+    if lib is None:
+        return False
+    assert flat.dtype == np.float32 and flat.flags.c_contiguous
+    assert rows.dtype == np.int32 and rows.flags.c_contiguous
+    if n:
+        lib.lossy_marshal_f32(
+            _ptr(flat, ctypes.c_float), n, C, hop, rows.shape[1],
+            ctypes.c_float(scale), _ptr(rows, ctypes.c_int32),
+        )
+    return True
+
+
+# ---------------- Sparse RLE ----------------
+
+
+def _offsets(sizes: np.ndarray):
+    """(exclusive prefix sums, total) of a 1-D int64 size array."""
+    n = len(sizes)
+    offsets = np.zeros(n, dtype=np.int64)
+    np.cumsum(sizes[:-1], out=offsets[1:])
+    return offsets, (int(offsets[-1] + sizes[-1]) if n else 0)
+
+
+def _split(out: np.ndarray, offsets, sizes) -> list:
+    buf = out.tobytes()
+    return [buf[int(o) : int(o + s)] for o, s in zip(offsets, sizes)]
+
+
+def _concat_blobs(blobs):
+    """Byte strings -> (one uint8 buffer with a valid base pointer, offsets,
+    lengths)."""
+    lens = np.array([len(b) for b in blobs], dtype=np.int64)
+    offsets, _ = _offsets(lens)
+    cat = np.frombuffer(b"".join(blobs), dtype=np.uint8) if len(blobs) else np.zeros(0, np.uint8)
+    cat = np.ascontiguousarray(cat)
+    if cat.size == 0:
+        cat = np.zeros(1, dtype=np.uint8)
+    return cat, offsets, lens
+
+
+def sparse_encode_batch(rows: np.ndarray):
+    """C++ sparse RLE over [n, width] i16 rows -> list of bytes, or None."""
+    lib = _load("sparse")
+    if lib is None:
+        return None
+    rows = np.ascontiguousarray(rows, dtype=np.int16)
+    n, width = rows.shape
+    sizes = np.empty(n, dtype=np.int64)
+    lib.sparse_sizes(_ptr(rows, ctypes.c_int16), n, width, _ptr(sizes, ctypes.c_int64))
+    offsets, total = _offsets(sizes)
+    out = np.zeros(max(total, 1), dtype=np.uint8)
+    if n:
+        lib.sparse_encode(
+            _ptr(rows, ctypes.c_int16), n, width,
+            _ptr(offsets, ctypes.c_int64), _ptr(out, ctypes.c_uint8),
+        )
+    return _split(out, offsets, sizes)
+
+
+def sparse_encode_entries_csr(entries: np.ndarray, row_nnz: np.ndarray,
+                              width: int):
+    """C++ sparse RLE straight from sorted (col<<16|val) entries.
+
+    entries: [total] i32, row-major (row r owns the slice starting at
+    cumsum(row_nnz)[r-1], cols strictly ascending within a row: the device
+    compaction's output order, ops/compact.py); row_nnz: [n] int. Emits
+    byte-identical streams to sparse_encode_batch on the equivalent dense
+    rows without ever materializing them. Returns list[bytes] or None.
+    """
+    lib = _load("sparse")
+    if lib is None:
+        return None
+    entries = np.ascontiguousarray(entries, dtype=np.int32)
+    row_nnz = np.ascontiguousarray(row_nnz, dtype=np.int32)
+    n = len(row_nnz)
+    row_off, _ = _offsets(row_nnz.astype(np.int64))
+    if entries.size == 0:
+        entries = np.zeros(1, dtype=np.int32)  # valid base pointer
+    sizes = np.empty(n, dtype=np.int64)
+    lib.sparse_sizes_csr(
+        _ptr(entries, ctypes.c_int32), _ptr(row_off, ctypes.c_int64),
+        _ptr(row_nnz, ctypes.c_int32), n, width, _ptr(sizes, ctypes.c_int64),
+    )
+    offsets, total = _offsets(sizes)
+    out = np.zeros(max(total, 1), dtype=np.uint8)
+    if n:
+        lib.sparse_encode_csr(
+            _ptr(entries, ctypes.c_int32), _ptr(row_off, ctypes.c_int64),
+            _ptr(row_nnz, ctypes.c_int32), n, width,
+            _ptr(offsets, ctypes.c_int64), _ptr(out, ctypes.c_uint8),
+        )
+    return _split(out, offsets, sizes)
+
+
+def sparse_decode_batch(blobs, width: int):
+    """C++ sparse RLE decode -> [n, width] i16, or None."""
+    lib = _load("sparse")
+    if lib is None:
+        return None
+    n = len(blobs)
+    cat, offsets, lens = _concat_blobs(blobs)
+    out = np.zeros((n, width), dtype=np.int16)
+    if n:
+        lib.sparse_decode(
+            _ptr(cat, ctypes.c_uint8), _ptr(offsets, ctypes.c_int64),
+            _ptr(lens, ctypes.c_int64), n, width, _ptr(out, ctypes.c_int16),
+        )
+    return out
+
+
+def sparse_decode_entries(blobs, width: int):
+    """C++ sparse RLE -> row-major (col<<16 | i16 value) int32 entries.
+
+    Returns (entries int32 [total_nnz], stream_nnz int64 [n]) or None.
+    Zero VALUES inside nonzero runs are dropped, matching dense+np.nonzero.
+    """
+    lib = _load("sparse")
+    if lib is None:
+        return None
+    n = len(blobs)
+    cat, offsets, lens = _concat_blobs(blobs)
+    counts = np.zeros(n, dtype=np.int64)
+    if n:
+        lib.sparse_entry_counts(
+            _ptr(cat, ctypes.c_uint8), _ptr(offsets, ctypes.c_int64),
+            _ptr(lens, ctypes.c_int64), n, width, _ptr(counts, ctypes.c_int64),
+        )
+    entry_off, total = _offsets(counts)
+    entries = np.zeros(max(total, 1), dtype=np.int32)
+    if n:
+        lib.sparse_decode_entries(
+            _ptr(cat, ctypes.c_uint8), _ptr(offsets, ctypes.c_int64),
+            _ptr(lens, ctypes.c_int64), _ptr(entry_off, ctypes.c_int64),
+            n, width, _ptr(entries, ctypes.c_int32),
+        )
+    return entries[:total], counts
 
 
 # ---------------- Analysis ----------------

@@ -205,6 +205,13 @@ def test_batch_decode_many_matches_reference():
     got = batch.decode_many(datas, device="cpu")
     for g, w in zip(got, tpu_batch.decode_many(datas)):
         np.testing.assert_array_equal(g, w)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        batch.decode_many([(EXAMPLES_DIR / "audio_lossy.flo").read_bytes()], device="cpu")
+    # A lossy file among them takes the lossy decoder and keeps its place
+    # (within one i16 step of the reference's: tests/test_torch_lossy.py).
+    lossy = (EXAMPLES_DIR / "audio_lossy.flo").read_bytes()
+    mixed = batch.decode_many([datas[0], lossy, datas[-1]], device="cpu")
+    np.testing.assert_array_equal(mixed[0], got[0])
+    np.testing.assert_array_equal(mixed[2], got[-1])
+    want = tpu_batch.decode_many([lossy])[0]
+    assert mixed[1].shape == want.shape
+    assert np.abs(np.rint(mixed[1] * 32767.0) - np.rint(want * 32767.0)).max() <= 1
     _no_launches()

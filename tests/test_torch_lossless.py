@@ -147,9 +147,17 @@ def test_round_trip_bit_exact(channels):
 
 
 def test_transform_frames_raise():
+    """A file of Transform frames goes to the lossy decoder (within one i16
+    step of the reference's, tests/test_torch_lossy.py); what raises is a
+    Transform frame cut short."""
     data = (EXAMPLES_DIR / "audio_lossy.flo").read_bytes()
-    with pytest.raises(NotImplementedError, match="lossy"):
-        flo_torch.decode(data, device="cpu")
+    got, want = flo_torch.decode(data, device="cpu"), flo_tpu.decode(data)
+    assert got.shape == want.shape
+    assert np.abs(np.rint(got * 32767.0) - np.rint(want * 32767.0)).max() <= 1
+    flo = torch_reader.read(data)
+    flo.frames[1].channels[0].residuals = flo.frames[1].channels[0].residuals[:40]
+    with pytest.raises(ValueError, match="Failed to deserialize transform frame"):
+        flo_torch.lossy.decoder.decode_file(flo, device="cpu")
 
 
 @pytest.mark.parametrize(

@@ -44,6 +44,28 @@ _SCRIPT = textwrap.dedent(
         assert np.array_equal(out, i.astype(np.float32) * np.float32(1 / 32767))
     assert encoder.encode(ints, rate, 2, compat="reference-bugs", device="cpu")
     assert cuda_lpc.LAUNCHES == cuda_select.LAUNCHES == cuda_ricepack.LAUNCHES == 0
+
+    # Lossy: encode -> decode on the CPU, single file and bulk, and the
+    # sparse coder built from the port's own source.
+    import pathlib
+    from flo_torch import native
+    from flo_torch.ops import cuda_psycho
+    lossy = flo_torch.encode_lossy(x, rate, 2, 4, device="cpu")
+    assert flo_torch.validate(lossy) and flo_torch.info(lossy).is_lossy
+    z = flo_torch.decode(lossy, device="cpu")
+    assert len(z) == -(-(len(x) // 2) // 1024) * 1024 * 2
+    noise = z[: len(x)] - x
+    assert 10 * np.log10(np.sum(x * x) / np.sum(noise * noise)) > 30.0
+    bulk = batch.encode_lossy_many(clips, rate, 2, 1, transport_dtype="packed", device="cpu")
+    outs = batch.decode_many(bulk + [data], device="cpu")
+    assert [len(o) for o in outs[:2]] == [len(flo_torch.decode(b, device="cpu")) for b in bulk]
+    assert np.array_equal(outs[2], y)
+    if native.available():
+        so = native.library_path("sparse")
+        assert so.is_file() and so.parent == native.BUILD_DIR
+        assert pathlib.Path(native.__file__).with_name("sparse.cpp").is_file()
+        assert native.sparse_decode_entries([bytes([5, 0])], 5) is not None
+    assert cuda_psycho.LAUNCHES == 0
     assert sys.modules["jax"] is None
     leaked = [m for m in sys.modules if m.startswith(("jax.", "jaxlib", "flo_tpu"))]
     assert not leaked, leaked
