@@ -31,8 +31,12 @@ Phases, in order; any failure exits non-zero:
    - temporal-masking scan at [16, 2585, 25] (the headline's lanes and hops),
      at [8, 2585, 25] (a chunk, as the main path calls it), [960, 44, 25],
      [1, 1, 25], [3, 7, 25], with no hop and with no lane, on an input with
-     NaN and +-inf, and through the dispatcher on a tensor with two leading
-     axes: the same bits as the plain loop;
+     NaN and +-inf, through the dispatcher on a tensor with two leading
+     axes, and on every case of ``cuda_psycho.scan_cases`` (hop counts around
+     a fact block and a chunk, 1 to 33 lanes, a loud hop then silence, NaN in
+     the first, a middle and the last chunk, infinities, denormals, -0.0):
+     the same bits as the plain loop, zero signs included; timed as called
+     from Python and on the card alone (a CUDA graph of 20 calls);
 4. corpus: every lossless file of tests/vectors/examples decodes on the card
    exactly as on the CPU and validates, and the 9 recoverable ones re-encode
    on the card (integer samples, compat="reference-bugs") byte-identical;
@@ -57,7 +61,21 @@ Phases, in order; any failure exits non-zero:
      the card.
    Realtime factors (of the first call and of a second, warm one),
    per-stage breakdowns, the compression ratio and the lossy path's peak
-   device memory are printed.
+   device memory are printed;
+6. the rest of the public API on one 60 s stereo 44.1 kHz clip, lossless at
+   level 5 and lossy at quality 1: (a) StreamingEncoder fed 4,096 samples at
+   a time gives the CPU run's bytes, and StreamingDecoder fed 64 KB at a
+   time gives decode's samples; (b) the lossy file streamed frame by frame,
+   its IMDCT on the card, within one i16 step of decode, frame count and
+   pre-roll as on the CPU; (c) seek_to_time at 0, 1, 29,999 and 59,999 ms
+   and decode_frame_at on the first, a middle and the last frame of both
+   files against the whole decode's slices; (d) reflo.encode_from_audio of
+   the clip as a WAV, lossless and lossy, then reflo.decode_to_wav: the
+   reconstruction and the scan kernels launched, lossless bit-exact, lossy
+   above the medium SNR floor; (e) one lossless and one lossy corpus file
+   streamed and sought on the card as on the CPU; (f) get_metadata,
+   update_metadata and strip_metadata leave validate true and the DATA
+   chunk's bytes as they were. Wall times of (a)-(d) are printed.
 
 The line before the last prints the card's name and power limit; before it,
 a JSON object with each kernel's launches (in its main path's run), error,
@@ -207,6 +225,25 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, launches: int = 20, replays: int = 10) -> float:
+    """Mean device milliseconds of fn(): ``launches`` calls captured into one
+    CUDA graph and replayed, so the host's time to launch a call is not in it
+    (a kernel of a few microseconds is otherwise timed at the rate Python can
+    launch it). fn must launch on PyTorch's current stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # built and warm before the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return time_ms(graph.replay, replays) / launches
 
 
 def phase_environment() -> str:
@@ -510,14 +547,10 @@ def phase_kernel_pack(gpu: str, search) -> dict:
 
 
 def masking_case(seed: int, shape):
-    """Seeded masking levels as ``smr`` makes them: dB values in [-120, 100]
-    with runs of -106 (silent bands) and exact zeros."""
-    rng = np.random.default_rng(seed)
-    m = rng.uniform(-120.0, 100.0, shape).astype(np.float32)
-    if m.size:
-        m[..., shape[-2] // 3 : shape[-2] // 2, 3::7] = -106.0
-        m[..., ::5, 11] = 0.0
-    return m
+    """Seeded masking levels as ``smr`` makes them (``cuda_psycho.music_like``)."""
+    from flo_torch.ops import cuda_psycho
+
+    return cuda_psycho.music_like(np.random.default_rng(seed), shape)
 
 
 def bit_equal(got, want, what: str) -> float:
@@ -556,6 +589,17 @@ def phase_kernel_temporal(gpu: str) -> dict:
     bit_equal(got, psycho.temporal_mask_plain(odd), "temporal_mask with NaN and inf")
     check(bool(torch.isnan(got[0, 7:, 3]).all()) and not bool(torch.isnan(got[0, :7, 3]).any()),
           "temporal_mask: a NaN must last from its hop to the lane's end")
+    slow = None
+    named = cuda_psycho.scan_cases()
+    for name, m in named:
+        m = torch.from_numpy(m).to(DEVICE)
+        got = cuda_psycho.temporal_mask_cuda(m)
+        torch.cuda.synchronize()
+        err = max(err, bit_equal(got, psycho.temporal_mask_plain(m), f"temporal_mask, {name}"))
+        if name.startswith("+96 dB"):
+            slow = m
+    log(f"[3 kernel] temporal_mask == plain loop on {len(named)} cases of the segmented scan "
+        f"({'; '.join(name for name, _ in named)}): the same bits, zero signs included")
     lead = torch.from_numpy(masking_case(2, (2, 3, 7, 25))).to(DEVICE)
     before = cuda_psycho.LAUNCHES
     bit_equal(psycho.temporal_mask(lead), psycho.temporal_mask_plain(lead),
@@ -567,17 +611,29 @@ def phase_kernel_temporal(gpu: str) -> dict:
     head, chunk = cases[shapes[0]], cases[shapes[1]]
     ms = time_ms(lambda: cuda_psycho.temporal_mask_cuda(head), 50)
     main_ms = time_ms(lambda: cuda_psycho.temporal_mask_cuda(chunk), 50)
+    # From Python the host launches a call about as fast as the card runs it,
+    # so the card's own time comes from a CUDA graph of 20 calls.
+    dev_ms = graph_ms(lambda: cuda_psycho.temporal_mask_cuda(head))
+    dev_main_ms = graph_ms(lambda: cuda_psycho.temporal_mask_cuda(chunk))
+    slow_ms = graph_ms(lambda: cuda_psycho.temporal_mask_cuda(slow))
     psycho.temporal_mask_plain(head[:, :64])  # warm-up
     plain_ms = time_ms(lambda: psycho.temporal_mask_plain(head), 1)
     # Bytes: the input read once, the output written once. Operations: a
     # multiply and a maximum an element, in float32.
     bound_ms, bound_by = bound(2 * tensor_bytes(head), 2 * head.numel(), F32_OPS_PER_S)
-    log(f"[3 kernel] temporal_mask at {list(head.shape)}: kernel {ms:.4f} ms (bound "
-        f"{bound_ms:.4f} ms by {bound_by} = {100 * bound_ms / ms:.1f}%; the chain is "
-        f"{head.shape[1]} dependent steps), plain PyTorch loop {plain_ms:.1f} ms; at "
-        f"{list(chunk.shape)}, as the main path calls it, {main_ms:.4f} ms [{gpu}]")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "ms_main_path": main_ms}
+    log(f"[3 kernel] temporal_mask at {list(head.shape)}: kernel {ms:.4f} ms called from "
+        f"Python, {dev_ms:.4f} ms on the card alone (a CUDA graph of 20 calls; bound "
+        f"{bound_ms:.4f} ms by {bound_by} = {100 * bound_ms / dev_ms:.1f}%; two launches, chains "
+        f"of {cuda_psycho.NEAR + cuda_psycho.CHUNK} of {head.shape[1]} hops where the near "
+        f"window meets), plain PyTorch loop {plain_ms:.1f} ms; at {list(chunk.shape)}, as the "
+        f"main path calls it, {main_ms:.4f} ms from Python, {dev_main_ms:.4f} ms on the card "
+        f"alone; its slow side, {list(slow.shape)} of a loud hop then silence (every carry "
+        f"through the warm window), {slow_ms:.4f} ms on the card alone [{gpu}]")
+    # "ms" is the card's own time, as for the other kernels (theirs are long
+    # enough for the host to keep ahead of the card).
+    return {"max_abs_err": err, "ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "ms_main_path": dev_main_ms, "ms_slow_side": slow_ms,
+            "ms_from_python": ms, "ms_main_path_from_python": main_ms}
 
 
 #: Lossless corpus files whose encoder input the reference generator's own
@@ -973,6 +1029,212 @@ def phase_lossy_path(gpu: str, clips) -> dict:
     return launches
 
 
+def data_chunk(data: bytes) -> bytes:
+    """The DATA chunk's bytes of a flo file."""
+    from flo_torch.container import reader
+
+    h = reader.read(data).header
+    start = 4 + h.header_size + h.toc_size
+    return data[start : start + h.data_size]
+
+
+def stream_decode(data: bytes, piece: int, device: str):
+    """``data`` fed to a StreamingDecoder in pieces; every frame as it comes."""
+    from flo_torch.streaming import StreamingDecoder
+
+    dec, frames = StreamingDecoder(device=device), []
+    for i in range(0, len(data), piece):
+        dec.feed(data[i : i + piece])
+        while (out := dec.next_frame()) is not None:
+            frames.append(out)
+    check(dec.state.name == "FINISHED", f"streaming decoder ended in {dec.state.name}")
+    return frames
+
+
+def check_seeks(name: str, data: bytes, whole: np.ndarray, targets_ms, lossy: bool) -> None:
+    """``seek_to_time`` at each target and ``decode_frame_at`` on the first,
+    a middle and the last frame, on the card, against the whole decode."""
+    import flo_torch
+    from flo_torch.container import reader
+
+    flo = reader.read(data)
+    rate, C, n_frames = flo.header.sample_rate, flo.header.channels, len(flo.frames)
+    for ms in targets_ms:
+        r = flo_torch.seek_to_time(data, ms)
+        entry = flo.toc[r.frame_index]
+        check(r.timestamp_ms == entry.timestamp_ms <= ms and r.byte_offset == entry.byte_offset
+              and (r.frame_index == n_frames - 1 or ms < r.next_timestamp_ms),
+              f"{name}: seek to {ms} ms gave {r}")
+        check(r.sample_offset == min((ms - r.timestamp_ms) * rate // 1000,
+                                     flo.frames[r.frame_index].frame_samples),
+              f"{name}: seek to {ms} ms: sample offset {r.sample_offset}")
+    for i in (0, n_frames // 2, n_frames - 1):
+        got = flo_torch.decode_frame_at(data, i, device=DEVICE)
+        if not lossy:
+            lo = sum(f.frame_samples for f in flo.frames[:i]) * C
+            check(np.array_equal(got, whole[lo : lo + len(got)]) and len(got) ==
+                  flo.frames[i].frame_samples * C, f"{name}: frame {i} != the whole decode's slice")
+        elif i == 0:  # the pre-roll frame, against a zero overlap: no slice of the output
+            within_one_step(got, flo_torch.decode_frame_at(data, 0, device="cpu"),
+                            f"{name}: frame 0 on the card against the CPU")
+        else:
+            hop = 1024 * C
+            within_one_step(got, whole[(i - 1) * hop : i * hop], f"{name}: frame {i}")
+    try:
+        flo_torch.decode_frame_at(data, n_frames, device=DEVICE)
+    except IndexError:
+        pass
+    else:
+        raise SmokeFailure(f"{name}: a frame index past the end did not raise")
+
+
+def phase_api(gpu: str, clip: np.ndarray) -> dict:
+    """The rest of the public API on the card, at full width: one 60 s stereo
+    44.1 kHz clip, lossless at level 5 and lossy at quality 1, through the
+    streaming encoder and decoder, seeking, the reflo facade (WAV in, WAV
+    out) and the metadata functions; then one lossless and one lossy corpus
+    file streamed and sought on the card against the CPU. Returns each
+    kernel's launches in this phase."""
+    import flo_torch
+    from flo_torch import audio_io, reflo
+    from flo_torch.core import convert
+    from flo_torch.lossy.presets import QUALITY_U8_TO_F32
+    from flo_torch.streaming import StreamingEncoder
+
+    mods = kernel_modules()
+    restore, plain_calls = plain_loop_guard()
+    torch.cuda.synchronize()
+    for m in mods.values():
+        m.LAUNCHES = 0
+    laps = {}
+
+    def lap(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        laps[name] = time.perf_counter() - t0
+        return out
+
+    def stream_encode(device):
+        enc = StreamingEncoder(RATE, CHANNELS, device=device).with_compression(5)
+        for i in range(0, len(clip), 4096):
+            enc.push_samples(clip[i : i + 4096])
+        return enc.finalize()
+
+    try:
+        # (a) lossless: streamed in, streamed out.
+        streamed = lap("a: StreamingEncoder, pieces of 4,096 samples", lambda: stream_encode(DEVICE))
+        check(streamed == stream_encode("cpu"), "streaming encode: the card's bytes != the CPU's")
+        check(flo_torch.validate(streamed), "streaming encode: CRC")
+        whole = flo_torch.decode(streamed, device=DEVICE)
+        want = convert.i32_to_f32(convert.f32_to_i32(torch.from_numpy(clip))).numpy()
+        check(np.array_equal(whole, want), "streaming encode: round trip not bit-exact")
+        frames = lap("a: StreamingDecoder, lossless, pieces of 64 KB",
+                     lambda: stream_decode(streamed, 65536, DEVICE))
+        check(len(frames) == SECONDS and np.array_equal(np.concatenate(frames), whole),
+              "streaming decode: lossless frames != decode of the same bytes")
+
+        # (b) lossy: encoded on the card, streamed out frame by frame.
+        lossy = lap("b: encode_lossy on the card (quality 1, no analysis)",
+                    lambda: flo_torch.encode_lossy(clip, RATE, CHANNELS, LOSSY_QUALITY,
+                                                   analyze=False, device=DEVICE))
+        lossy_whole = flo_torch.decode(lossy, device=DEVICE)
+        lframes = lap("b: StreamingDecoder, lossy, a frame at a time, IMDCT on the card",
+                      lambda: stream_decode(lossy, 65536, DEVICE))
+        cpu_frames = lap("b: the same on the CPU", lambda: stream_decode(lossy, 65536, "cpu"))
+        hops = -(-(SECONDS * RATE + 1024) // 1024)
+        check([f.size for f in lframes] == [f.size for f in cpu_frames] and len(lframes) == hops
+              and lframes[0].size == 0 and all(f.size == 1024 * CHANNELS for f in lframes[1:]),
+              "streaming decode: lossy frame count or pre-roll differ from the CPU's")
+        within_one_step(np.concatenate(lframes), lossy_whole, "streaming decode: lossy frames")
+
+        # (c) seeking on both files.
+        targets = (0, 1, 29_999, 59_999)
+        lap("c: 4 seeks + 3 frames, lossless",
+            lambda: check_seeks("streamed lossless", streamed, whole, targets, False))
+        lap("c: 4 seeks + 3 frames, lossy",
+            lambda: check_seeks("lossy", lossy, lossy_whole, targets, True))
+        for ms in targets:
+            r = flo_torch.seek_to_time(streamed, ms)
+            check((r.frame_index, r.sample_offset) == (ms // 1000, (ms % 1000) * RATE // 1000),
+                  f"lossless seek to {ms} ms: {r}")
+
+        # (d) the reflo facade: WAV in, flo, WAV out.
+        wav = audio_io.write_wav_to_bytes(clip, RATE, CHANNELS)
+        before = {name: m.LAUNCHES for name, m in mods.items()}
+        ref_lossless = lap("d: reflo.encode_from_audio, lossless level 5",
+                           lambda: reflo.encode_from_audio(wav, reflo.EncodeOptions.lossless(),
+                                                           device=DEVICE))
+        ref_lossy = lap("d: reflo.encode_from_audio, lossy quality 1",
+                        lambda: reflo.encode_from_audio(
+                            wav, reflo.EncodeOptions.lossy_quality(QUALITY_U8_TO_F32[LOSSY_QUALITY]),
+                            device=DEVICE))
+        back = lap("d: reflo.decode_to_wav, lossless",
+                   lambda: reflo.decode_to_wav(ref_lossless, device=DEVICE))
+        back_lossy = lap("d: reflo.decode_to_wav, lossy",
+                         lambda: reflo.decode_to_wav(ref_lossy, device=DEVICE))
+        for name in ("lpc_reconstruct", "temporal_mask"):
+            check(mods[name].LAUNCHES > before[name], f"the reflo round trip never launched {name}")
+        check(reflo.validate_flo(ref_lossless) and reflo.validate_flo(ref_lossy), "reflo: CRC")
+        samples, rate, C, _ = audio_io.read_audio_from_bytes(back)
+        check((rate, C) == (RATE, CHANNELS) and np.array_equal(samples, want),
+              "reflo: lossless WAV -> flo -> WAV not bit-exact")
+        samples, rate, C, _ = audio_io.read_audio_from_bytes(back_lossy)
+        snr = snr_db(clip, samples)
+        check((rate, C) == (RATE, CHANNELS) and np.isfinite(samples).all()
+              and snr > CHORD_FLOORS["medium"], f"reflo: lossy round trip SNR {snr:.2f} dB")
+        meta = reflo.get_metadata(ref_lossy)
+        check(meta.flo_encoder_version == f"flo_torch {flo_torch.__version__}"
+              and meta.length_ms == SECONDS * 1000 and meta.source_format is not None,
+              f"reflo: metadata stamps {meta.flo_encoder_version!r}, {meta.length_ms}")
+
+        # (f) metadata editing leaves the audio alone.
+        for name, data in (("lossless", ref_lossless), ("lossy", ref_lossy)):
+            meta = flo_torch.get_metadata(data)
+            meta.title, meta.artist = "smoke", "chip"
+            edited = flo_torch.update_metadata(data, meta)
+            stripped = flo_torch.strip_metadata(edited)
+            check(flo_torch.get_metadata(edited).title == "smoke" and flo_torch.has_metadata(edited)
+                  and not flo_torch.has_metadata(stripped)
+                  and flo_torch.get_metadata_bytes(stripped) == b"",
+                  f"metadata round trip, {name}")
+            for what, d in (("edited", edited), ("stripped", stripped)):
+                check(flo_torch.validate(d) and data_chunk(d) == data_chunk(data),
+                      f"metadata {what}, {name}: CRC or DATA chunk changed")
+        check(flo_torch.info(ref_lossless).version == flo_torch.version(), "version()")
+
+        # (e) the corpus: one lossless and one lossy file, card against CPU.
+        for fname, is_lossy in (("multitone_stereo.flo", False), ("lossy_chord_medium.flo", True)):
+            data = (EXAMPLES / fname).read_bytes()
+            card = stream_decode(data, 4096, DEVICE)
+            cpu = stream_decode(data, 4096, "cpu")
+            check([f.size for f in card] == [f.size for f in cpu], f"{fname}: streamed frame sizes")
+            full = flo_torch.decode(data, device=DEVICE)
+            if is_lossy:
+                within_one_step(np.concatenate(card), np.concatenate(cpu), f"{fname}: streamed")
+                within_one_step(np.concatenate(card), full, f"{fname}: streamed against decode")
+            else:
+                check(np.array_equal(np.concatenate(card), np.concatenate(cpu))
+                      and np.array_equal(np.concatenate(card), full), f"{fname}: streamed")
+            dur_ms = int(len(full) // flo_torch.info(data).channels * 1000
+                         // flo_torch.info(data).sample_rate)
+            check_seeks(fname, data, full, (0, 1, dur_ms // 2, max(dur_ms - 1, 0)), is_lossy)
+        check(not plain_calls, f"the scan's plain loop ran on the card: {plain_calls}")
+    finally:
+        restore()
+
+    launches = {name: m.LAUNCHES for name, m in mods.items()}
+    log(f"[6 api] one {SECONDS} s stereo {RATE} Hz clip: streaming encode == the CPU's bytes "
+        f"({len(streamed)} bytes, round trip bit-exact), streaming decode == decode (lossless, "
+        f"{SECONDS} frames; lossy, {hops} frames with the pre-roll, within one i16 step), seeks at "
+        f"{targets} ms and frames first/middle/last == the whole decode's slices, reflo WAV -> flo "
+        f"-> WAV lossless bit-exact and lossy {snr:.2f} dB, metadata edits keep the DATA chunk, "
+        f"two corpus files streamed and sought as on the CPU; launches {launches}")
+    for name, s in laps.items():
+        log(f"[6 api] {name}: {s:.3f} s = {SECONDS / s:.1f}x realtime [{gpu}]")
+    return launches
+
+
 def lossy_encode_breakdown(clips, encoded, gpu: str) -> str:
     """The bulk lossy encode's stages, summed over the two chunks; the
     files must have lossy.encoder.encode_many's sizes (1%)."""
@@ -1071,9 +1333,10 @@ def main() -> int:
     phase_corpus(gpu)
     launches = phase_main_path(gpu, clips)
     launches.update(phase_lossy_path(gpu, clips))
+    api_launches = phase_api(gpu, clips[0])
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **measured[name],
+         "launches": launches[name], "launches_api_phase": api_launches[name], **measured[name],
          "share_of_bound": measured[name]["bound_ms"] / measured[name]["ms"],
          "library_ms": None}
         for name, (src, rep) in KERNELS.items()

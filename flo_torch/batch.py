@@ -12,6 +12,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from . import debug
 from .container import reader, writer
 from .core.analysis_batch import analyze_many
 from .futures import BulkFuture
@@ -181,6 +182,8 @@ def decode_many_async(datas: Sequence[bytes], *, device="cuda") -> BulkFuture:
     def fin() -> List[np.ndarray]:
         for idxs, fut in pending:
             for i, out in zip(idxs, fut.result()):
+                if debug.debug_enabled():
+                    debug.check_finite(f"decode_many, file {i}", out)
                 outs[i] = out
         return outs
 

@@ -25,8 +25,13 @@ twice, in turns (A B .. B A after a warm-up, 10 launches each, CUDA events):
   wait;
 - the scan at [16, 2585, 25] (the headline's lanes and hops) and at
   [8, 2585, 25] (a chunk of the main path), each design equal to the plain
-  loop there and at [3, 7, 25], on an input with NaN; its cuts (a part left
-  out) are timed only.
+  loop there, at [3, 7, 25] on an input with NaN and on every case of
+  ``cuda_psycho.scan_cases`` (one of them, a loud hop followed by silence,
+  is timed too: the segmented designs' slow side); its cuts (a part left
+  out) are timed only. Each time is given twice over: as called from Python
+  (CUDA events around 50 calls, which for a kernel of a few microseconds is
+  the rate the host can launch at) and on the card alone (a CUDA graph of 20
+  launches, replayed).
 
 Prints a line for each design and input, with the card's name and power
 limit. The port ships design 4 of the reconstruction
@@ -83,10 +88,16 @@ SELECT_DESIGNS = (
 SCAN_DESIGNS = (
     ("a thread a chain, 32 hops of loads in flight in registers, NaN rule on the chain", True),
     ("a block a lane, tiles of 128 hops through shared memory, NaN off the chain", True),
-    ("+ a tile's 128 chain inputs taken into registers first: shipped", True),
+    ("+ a tile's 128 chain inputs taken into registers first: the first kernel shipped", True),
     ("tiles of 32 hops, one warp a block", True),
     ("cut: tiles of 128 hops without the chain", False),
     ("cut: tiles of 128 hops without the global loads and stores", False),
+    ("segmented, two chains over a window: chunks of 32 hops, warm window 384", True),
+    ("segmented: chunks of 64 hops, warm window 384", True),
+    ("segmented: chunks of 128 hops, warm window 320: shipped", True),
+    ("segmented: chunks of 64 hops, 128 threads", True),
+    ("cut: the segmented scan's facts kernel alone", False),
+    ("cut: the segmented scan's second kernel alone, on facts left by a run before", False),
 )
 
 
@@ -454,17 +465,24 @@ def search_pack(gpu: str, clips) -> None:
 
 
 def search_scan(gpu: str, clips) -> None:
-    from flo_torch.ops import psycho
+    from flo_torch.ops import cuda_psycho, psycho
 
     lib = build("scan_designs")
-    lib.flo_scan_design.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                                    ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p]
+    lib.flo_scan_design.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+                                    ctypes.c_void_p]
     smoke.check(lib.flo_scan_designs() == len(SCAN_DESIGNS), "scan design count")
+
+    scratch: dict = {}  # the segmented designs' facts, kept between runs for cut 11
 
     def run(design, masking):
         out = torch.empty_like(masking)
-        rc = lib.flo_scan_design(masking.data_ptr(), out.data_ptr(), masking.shape[0],
-                                 masking.shape[1], design, torch.cuda.current_stream().cuda_stream)
+        R, T = masking.shape[:2]
+        if (R, T) not in scratch:
+            scratch[R, T] = torch.empty((R, -(-T // 32), 25), device=smoke.DEVICE)
+        facts = scratch[R, T]
+        rc = lib.flo_scan_design(masking.data_ptr(), out.data_ptr(), facts.data_ptr(), R, T,
+                                 design, torch.cuda.current_stream().cuda_stream)
         smoke.check(rc == 0, f"scan design {design}: CUDA error {rc}")
         return out
 
@@ -474,7 +492,10 @@ def search_scan(gpu: str, clips) -> None:
     odd[1, 2, 4] = float("nan")
     cases = {shape: torch.from_numpy(smoke.masking_case(sum(shape), shape)).to(smoke.DEVICE)
              for shape in ((lanes, hops, 25), (lanes // 2, hops, 25))}
+    timed = set(cases) | {"+96 dB then 2,000 hops of -100 dB"}
     cases["[3, 7, 25] with NaN"] = torch.from_numpy(odd).to(smoke.DEVICE)
+    for name, m in cuda_psycho.scan_cases():
+        cases[name] = torch.from_numpy(m).to(smoke.DEVICE)
     for what, m in cases.items():
         want = psycho.temporal_mask_plain(m)
         fns = {}
@@ -482,11 +503,18 @@ def search_scan(gpu: str, clips) -> None:
             if whole:
                 smoke.bit_equal(run(d, m), want, f"scan design {d} at {what}")
             fns[d] = lambda d=d: run(d, m)
-        if m.shape[1] != hops:
+        if what not in timed:
             continue
-        for d, ms in time_in_turns(fns, iters=50).items():
+        called = time_in_turns(fns, iters=50)
+        for fn in fns.values():
+            fn()
+        alone = {d: [] for d in fns}
+        for d in [*fns, *reversed(fns)]:  # the card's own time: a CUDA graph of 20 launches
+            alone[d].append(smoke.graph_ms(fns[d]))
+        for d, ms in called.items():
             smoke.log(f"[design] temporal_mask {list(m.shape)} design {d} ({SCAN_DESIGNS[d][0]}): "
-                      f"{ms[0]:.4f} / {ms[1]:.4f} ms [{gpu}]")
+                      f"{ms[0]:.4f} / {ms[1]:.4f} ms called from Python, "
+                      f"{alone[d][0]:.4f} / {alone[d][1]:.4f} ms on the card alone [{gpu}]")
 
 
 def main(argv) -> int:

@@ -1,16 +1,24 @@
-"""Top-level API facade: the part of the reference's ``lib.py`` ported so far
-(lossless and lossy encode, auto-detecting decode, info, validate)."""
+"""Top-level API facade: the normative public surface.
+
+Mirrors libflo/src/lib.rs: encode / encode_lossy / encode_with_bitrate /
+decode / validate / info / version / format_time, metadata creation and
+zero-copy editing, and analysis exports. Auto-embeds analysis data
+(waveform + fingerprint + loudness + length_ms) at encode time like
+lib.rs:219-283. Functions that run on a device take ``device=``.
+"""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 
+from . import debug
 from .container import reader
 from .core import crc32
 from .core.analysis_batch import analyze_one
-from .core.constants import FrameType
+from .core.constants import HEADER_SIZE, MAGIC, VERSION_MAJOR, VERSION_MINOR, FrameType
 from .core.metadata import FloMetadata
 from .lossless import decoder as lossless_decoder
 from .lossless import encoder as lossless_encoder
@@ -36,6 +44,23 @@ class AudioInfo:
     lossy_quality: int
 
 
+_META_SIZE_OFFSET = 62  # byte offset of meta_size in the file (lib.rs:1090-1092)
+
+
+def add_analysis_data_if_missing(
+    metadata: bytes,
+    samples: np.ndarray,
+    sample_rate: int,
+    channels: int,
+    peaks_per_second: int = 50,
+) -> bytes:
+    """Embed waveform/fingerprint/loudness/length_ms (lib.rs:219-283).
+
+    Routed through core/analysis_batch (native biquad/FIR/BLAKE3 with
+    portable fallbacks: identical numerics). Host work."""
+    return analyze_one(metadata, samples, sample_rate, channels, peaks_per_second)
+
+
 def encode(
     samples,
     sample_rate: int,
@@ -45,14 +70,17 @@ def encode(
     compression_level: int = 5,
     *,
     analyze: bool = True,
+    device="cuda",
 ) -> bytes:
     """Lossless encode with auto-analysis metadata (waveform, fingerprint,
-    loudness, length). Runs on the host."""
+    loudness, length). A lone file is encoded on the host by the C++ search;
+    on a host without a C++ toolchain it takes the bulk path on ``device``."""
     samples = np.asarray(samples, dtype=np.float32).reshape(-1)
     if analyze:
         metadata = analyze_one(metadata, samples, sample_rate, channels)
     return lossless_encoder.encode(
-        samples, sample_rate, channels, bit_depth, compression_level, metadata
+        samples, sample_rate, channels, bit_depth, compression_level, metadata,
+        device=device,
     )
 
 
@@ -123,11 +151,19 @@ def is_transform(flo) -> bool:
 
 def decode(data: bytes, *, device="cuda") -> np.ndarray:
     """Auto-detecting decode (lib.rs:296-315) to interleaved float32 samples
-    on ``device``: any Transform frame -> lossy."""
+    on ``device``: any Transform frame -> lossy. In debug mode
+    (:mod:`flo_torch.debug`) the DATA CRC is verified first and the decoded
+    samples are checked to be finite."""
+    if debug.debug_enabled():
+        debug.check_crc(data)
     flo = reader.read(data)
     if is_transform(flo):
-        return lossy_decoder.decode_file(flo, device=device)
-    return lossless_decoder.decode_file(flo, device=device)
+        out = lossy_decoder.decode_file(flo, device=device)
+    else:
+        out = lossless_decoder.decode_file(flo, device=device)
+    if debug.debug_enabled():
+        debug.check_finite("decode", out)
+    return out
 
 
 def _data_span(flo, data: bytes) -> tuple[int, int]:
@@ -174,3 +210,72 @@ def info(data: bytes) -> AudioInfo:
         is_lossy=flo.header.is_lossy,
         lossy_quality=flo.header.lossy_quality,
     )
+
+
+def version() -> str:
+    """Library/format version (lib.rs:443-446)."""
+    return f"{VERSION_MAJOR}.{VERSION_MINOR}"
+
+
+def format_time(seconds: float) -> str:
+    """MM:SS or H:MM:SS (lib.rs:449-466)."""
+    if not np.isfinite(seconds) or seconds < 0.0:
+        return "0:00"
+    total = int(seconds)
+    hours, mins, secs = total // 3600, (total % 3600) // 60, total % 60
+    if hours > 0:
+        return f"{hours}:{mins:02d}:{secs:02d}"
+    return f"{mins}:{secs:02d}"
+
+
+def format_time_ms(milliseconds: float) -> str:
+    return format_time(milliseconds / 1000.0)
+
+
+# ---------------- metadata CRUD (lib.rs:823-1196) ----------------
+
+
+def create_metadata(
+    title: Optional[str] = None, artist: Optional[str] = None, album: Optional[str] = None
+) -> bytes:
+    return FloMetadata.with_basic(title, artist, album).to_msgpack()
+
+
+def get_metadata(data: bytes) -> FloMetadata:
+    flo = reader.read(data)
+    return FloMetadata.from_msgpack(flo.metadata) if flo.metadata else FloMetadata()
+
+
+def get_metadata_bytes(data: bytes) -> bytes:
+    return reader.read(data).metadata
+
+
+def update_metadata_bytes(flo_data: bytes, new_metadata: bytes) -> bytes:
+    """Zero-copy metadata replacement: byte splice + meta_size patch at
+    offset 62, audio bytes and CRC untouched (lib.rs:1058-1096)."""
+    if len(flo_data) < HEADER_SIZE:
+        raise ValueError("File too small to be valid flo")
+    if flo_data[0:4] != MAGIC:
+        raise ValueError("Invalid flo file: bad magic")
+    flo = reader.read(flo_data)
+    meta_offset = _data_span(flo, flo_data)[1] + flo.header.extra_size
+    out = bytearray(flo_data[:meta_offset])
+    out += new_metadata
+    out[_META_SIZE_OFFSET : _META_SIZE_OFFSET + 8] = len(new_metadata).to_bytes(8, "little")
+    return bytes(out)
+
+
+def update_metadata(flo_data: bytes, meta: FloMetadata) -> bytes:
+    return update_metadata_bytes(flo_data, meta.to_msgpack())
+
+
+def strip_metadata(flo_data: bytes) -> bytes:
+    """Remove all metadata (lib.rs:1121-1135)."""
+    return update_metadata_bytes(flo_data, b"")
+
+
+def has_metadata(flo_data: bytes) -> bool:
+    """Fast header peek (lib.rs:1169-1188)."""
+    if len(flo_data) < _META_SIZE_OFFSET + 8:
+        return False
+    return int.from_bytes(flo_data[_META_SIZE_OFFSET : _META_SIZE_OFFSET + 8], "little") > 0

@@ -18,12 +18,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import native
 from ..container import reader
 from ..core import rice_host
 from ..core.constants import FIXED_PREDICTOR_MARKER, FrameType
 from ..core.types import FloFile
 from ..futures import BulkFuture
-from ..core.convert import i32_to_f32
+from ..core.convert import i32_to_f32, i32_to_f32_np
 from ..ops import lpc
 from ..ops.intmath import div2_trunc
 
@@ -229,3 +230,32 @@ def decode_file_i32(flo: FloFile, *, device="cuda") -> np.ndarray:
     fcs = _undo_midside_host(samples.reshape(-1, channels, S), mid_side, channels)
     parts = [fcs[i, :, : frame_lengths[i]].T for i in range(fcs.shape[0])]
     return np.concatenate(parts, axis=0)
+
+
+def decode_file_host(flo: FloFile, *, device="cuda") -> np.ndarray:
+    """Single-file decode with NO device round trip -> interleaved f32.
+
+    The bulk decode amortises a transfer and a launch over thousands of
+    lanes; a streaming ``next_frame()`` or a seek's ``decode_frame_at`` holds
+    one frame and cannot, so those paths run on the host: C++ batch Rice
+    unpack plus C++ LPC reconstruction (native/rice.cpp
+    ``lpc_reconstruct_batch``). Only on a host without a C++ toolchain does
+    it take :func:`decode_file` on ``device`` instead.
+    """
+    channels = flo.header.channels
+    marshaled = _marshal_lanes(flo)
+    if marshaled is None:
+        return np.zeros(0, dtype=np.float32)
+    rows, coeffs, shifts, orders, is_fixed, mid_side, S, frame_lengths = marshaled
+    if not native.lpc_reconstruct_into(
+        rows, coeffs, shifts, orders, is_fixed, np.repeat(frame_lengths, channels)
+    ):
+        return decode_file(flo, device=device)
+    out = native.midside_interleave_f32(
+        rows, mid_side, frame_lengths.astype(np.int64), channels, 1.0 / 32767.0
+    )
+    if out is not None:
+        return out
+    fcs = _undo_midside_host(rows.reshape(-1, channels, S), mid_side, channels)
+    parts = [fcs[i, :, : frame_lengths[i]].T for i in range(fcs.shape[0])]
+    return i32_to_f32_np(np.concatenate(parts, axis=0)).reshape(-1)

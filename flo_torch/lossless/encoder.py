@@ -29,7 +29,7 @@ re-pack of ``bad`` lanes and its ``mesh`` argument have no counterpart.
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -479,10 +479,13 @@ def encode_to_frames(
     f32 input with the default compat runs on the host (a lone file cannot
     amortise a device pass); integer input and compat="reference-bugs" take
     the bulk path with ``analysis="exact"`` on ``device``, as in the
-    reference."""
+    reference. So does f32 input on a host without a C++ toolchain: the bulk
+    path gives the same bytes."""
     arr = np.asarray(samples)
     if compat == "fixed" and not np.issubdtype(arr.dtype, np.integer):
-        return _encode_frames_host_file(arr, sample_rate, channels, compression_level)
+        frames = _encode_frames_host_file(arr, sample_rate, channels, compression_level)
+        if frames is not None:
+            return frames
     return encode_many_to_frames(
         [arr], sample_rate, channels, compression_level, "exact", compat, device=device
     )[0]
@@ -490,30 +493,37 @@ def encode_to_frames(
 
 def _encode_frames_host_file(
     samples: np.ndarray, sample_rate: int, channels: int, compression_level: int
-) -> List[Frame]:
-    """Whole-file host encode: one encode_frame_host call per 1 s frame."""
+) -> Optional[List[Frame]]:
+    """Whole-file host encode: one encode_frame_host call per 1 s frame.
+    Returns None when the native toolchain is unavailable."""
     arr = np.asarray(samples, dtype=np.float32).reshape(-1)
     C = int(channels)
     spf = int(sample_rate)
     total = len(arr) // C
-    return [
-        encode_frame_host(arr[start * C : min(start + spf, total) * C], sample_rate, C,
-                          compression_level)
-        for start in range(0, total, spf)
-    ]
+    frames: List[Frame] = []
+    for start in range(0, total, spf):
+        f = encode_frame_host(arr[start * C : min(start + spf, total) * C], sample_rate, C,
+                              compression_level)
+        if f is None:
+            return None
+        frames.append(f)
+    return frames
 
 
 def encode_frame_host(
-    samples: np.ndarray, sample_rate: int, channels: int, compression_level: int = 5
-) -> Frame:
+    samples: np.ndarray, sample_rate: int, channels: int, compression_level: int = 5,
+    prune_lpc: int = 0,
+) -> Optional[Frame]:
     """Encode ONE frame's interleaved f32 samples on the host: C++ candidate
-    search (native/encode.cpp) + C++ Rice pack. Raises when the native
-    library cannot be built."""
+    search (native/encode.cpp) + C++ Rice pack. The per-frame path of the
+    streaming encoder (``prune_lpc`` keeps only the most promising LPC orders
+    for the exact size count). Returns None for an empty frame and when the
+    native library cannot be built: callers then take the bulk path."""
     arr = np.asarray(samples, dtype=np.float32).reshape(-1)
     C = int(channels)
     n = len(arr) // C
     if n == 0:
-        raise ValueError("empty frame")
+        return None
     if (np.abs(arr[: n * C]) < SILENCE_THRESHOLD).all():
         return Frame(
             frame_type=int(FrameType.SILENCE),
@@ -536,9 +546,11 @@ def encode_frame_host(
 
     kinds, cand_orders, max_order = _candidate_plan(compression_level)
     use_lpc = any(kd == "lpc" for kd in kinds)
-    out = native.lossless_search_batch(ch, np.full(C, n, np.int64), max_order, use_lpc)
+    out = native.lossless_search_batch(
+        ch, np.full(C, n, np.int64), max_order, use_lpc, prune_lpc
+    )
     if out is None:
-        raise RuntimeError("the C++ encoder (native/encode.cpp) could not be built")
+        return None
     sel_kind, sel_order, ks, coeffs, shifts, sizes, residuals = out
 
     rice_lanes = np.flatnonzero(sel_kind != 0)

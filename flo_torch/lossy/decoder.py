@@ -86,9 +86,10 @@ def _sparse_decode_rows(streams, n2: int) -> np.ndarray:
     return rows
 
 
-def deserialize_frame(data: bytes):
+def deserialize_frame(data: bytes, expect_n2: int | None = None):
     """Parse one transform blob -> (n, sf [C, 25] f32, q [C, n/2] i16) or
-    None on truncation (decoder.rs:61-131)."""
+    None on truncation (decoder.rs:61-131). ``expect_n2`` is accepted for
+    the reference's signature; the blob's own size field decides."""
     raw = deserialize_frame_raw(data)
     if raw is None:
         return None

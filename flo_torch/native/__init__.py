@@ -1,17 +1,22 @@
 """Native (C++) host code with a build at first use and ctypes binding.
 
-The port's copy of the reference's host natives, cut down to the five sources
+The port's copy of the reference's host natives, cut down to the six sources
 the port calls:
 
-- rice.cpp     — Rice bitstream pack/unpack (rice.rs equivalent)
+- rice.cpp     — Rice bitstream pack/unpack (rice.rs equivalent) and the
+                 in-place LPC reconstruction of the single-frame host decode
 - blockpack.cpp — the bulk encodes' fused f32 -> int32 marshals
                  (``encode_marshal_f32`` lossless, ``lossy_marshal_f32`` lossy)
+                 and the single-file decode finalizer
+                 (``midside_interleave_f32``)
 - sparse.cpp   — sparse run-length coefficient coder of the lossy frames
                  (dense rows or sorted CSR entries in, entries or rows out)
 - encode.cpp   — lossless best-of-N candidate search (encoder.rs:173-217 +
                  lpc.rs), the single-file host encode
 - analysis.cpp — BLAKE3 (parallel tree), K-weighting biquads, true-peak FIR
                  (analysis.rs / ebu_r128.rs hot loops, for bulk auto-embed)
+- ingest.cpp   — AAC/M4A ingest shim over the system's libavformat and
+                 libavcodec (``aac.py``); builds only where they are installed
 
 Each source is compiled by g++ at first use into ``build/flo_torch/native/``
 beside the package, under a name keyed by a hash of the source and the
@@ -53,8 +58,15 @@ _SIGNATURES = {
         "rice_decode_batch": [
             _u8p, _i64p, _i64p, _i32p, _i64p, ctypes.c_int64, ctypes.c_int64, _i32p
         ],
+        "lpc_reconstruct_batch": [
+            _i32p, ctypes.c_int64, ctypes.c_int64, _i32p, _i32p, _i32p, _u8p, _i64p
+        ],
     },
     "blockpack": {
+        "midside_interleave_f32": [
+            _i32p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _u8p,
+            _i64p, ctypes.c_float, _f32p,
+        ],
         "encode_marshal_f32": [
             _f32p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
             ctypes.c_int64, ctypes.c_float, ctypes.c_float, _u8p, _i64p,
@@ -91,6 +103,29 @@ _SIGNATURES = {
             _i32p, _i32p, _i32p, _i32p, _i32p, _i64p, _i32p,
         ],
     },
+    "ingest": {
+        # AAC/M4A ingest shim over the system libavformat/libavcodec
+        # (ingest.cpp): a handle-based API, see aac.py.
+        "flo_ingest_decode": [_u8p, ctypes.c_int64],
+        "flo_ingest_encode_aac": [
+            _f32p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+            ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
+        ],
+        "flo_ingest_error": [ctypes.c_void_p],
+        "flo_ingest_rate": [ctypes.c_void_p],
+        "flo_ingest_channels": [ctypes.c_void_p],
+        "flo_ingest_nsamples": [ctypes.c_void_p],
+        "flo_ingest_samples": [ctypes.c_void_p, _f32p],
+        "flo_ingest_ntags": [ctypes.c_void_p],
+        "flo_ingest_tag_key": [ctypes.c_void_p, ctypes.c_int],
+        "flo_ingest_tag_val": [ctypes.c_void_p, ctypes.c_int],
+        "flo_ingest_cover_size": [ctypes.c_void_p],
+        "flo_ingest_cover_mime": [ctypes.c_void_p],
+        "flo_ingest_cover": [ctypes.c_void_p, _u8p],
+        "flo_ingest_bytes_size": [ctypes.c_void_p],
+        "flo_ingest_bytes": [ctypes.c_void_p, _u8p],
+        "flo_ingest_free": [ctypes.c_void_p],
+    },
     "analysis": {
         "blake3_digest": [_u8p, ctypes.c_int64, _u8p],
         "kweight_cascade": [_f64p, ctypes.c_int64, ctypes.c_int64, _f64p],
@@ -110,6 +145,20 @@ _SIGNATURES = {
 _RESTYPES = {
     "sumsq_f32": ctypes.c_double,
     "encode_marshal_f32": ctypes.c_int64,
+    "flo_ingest_decode": ctypes.c_void_p,
+    "flo_ingest_encode_aac": ctypes.c_void_p,
+    "flo_ingest_error": ctypes.c_char_p,
+    "flo_ingest_nsamples": ctypes.c_int64,
+    "flo_ingest_tag_key": ctypes.c_char_p,
+    "flo_ingest_tag_val": ctypes.c_char_p,
+    "flo_ingest_cover_size": ctypes.c_int64,
+    "flo_ingest_cover_mime": ctypes.c_char_p,
+    "flo_ingest_bytes_size": ctypes.c_int64,
+}
+
+#: module -> extra g++ flags (system libraries the shim links against).
+_LINK_FLAGS = {
+    "ingest": ("-lavformat", "-lavcodec", "-lavutil"),
 }
 
 #: g++ command lines, tried in turn; the first names the library.
@@ -122,12 +171,12 @@ _COMPILERS = (
 
 def library_path(name: str) -> pathlib.Path:
     """Where ``<name>.cpp`` builds to: keyed by its bytes and the flags."""
-    h = hashlib.sha256(repr(_COMPILERS).encode())
+    h = hashlib.sha256(repr((_COMPILERS, _LINK_FLAGS.get(name, ()))).encode())
     h.update((_DIR / f"{name}.cpp").read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _build(src: pathlib.Path, out: pathlib.Path) -> bool:
+def _build(src: pathlib.Path, out: pathlib.Path, link: tuple = ()) -> bool:
     """Compile ``src`` into ``out`` unless another process already has; one
     process builds at a time (a lock file beside the libraries)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -139,7 +188,7 @@ def _build(src: pathlib.Path, out: pathlib.Path) -> bool:
         for cmd in _COMPILERS:
             try:
                 res = subprocess.run(
-                    [*cmd, str(src), "-o", str(tmp)], capture_output=True, timeout=300
+                    [*cmd, str(src), "-o", str(tmp), *link], capture_output=True, timeout=300
                 )
             except (OSError, subprocess.SubprocessError):
                 continue
@@ -157,7 +206,7 @@ def _load(name: str):
         lib = None
         try:
             so = library_path(name)
-            if so.exists() or _build(_DIR / f"{name}.cpp", so):
+            if so.exists() or _build(_DIR / f"{name}.cpp", so, _LINK_FLAGS.get(name, ())):
                 lib = ctypes.CDLL(str(so))
                 for fn, argtypes in _SIGNATURES[name].items():
                     getattr(lib, fn).argtypes = argtypes
@@ -240,6 +289,66 @@ def rice_decode_concat(cat, offsets, blob_lens, ks, lengths, out_width: int):
             _ptr(blob_lens, ctypes.c_int64), _ptr(ks, ctypes.c_int32),
             _ptr(lengths, ctypes.c_int64), n, out_width,
             _ptr(out, ctypes.c_int32),
+        )
+    return out
+
+
+def lpc_reconstruct_into(rows: np.ndarray, coeffs, shifts, orders, is_fixed,
+                         lengths) -> bool:
+    """C++ in-place LPC/fixed reconstruction over [L, S] int32 residual rows
+    (decoder.rs:92-273 semantics: i64 MAC >> shift, int32 wrap, fixed-lane
+    warm-up ramp). The host half of the streaming/seeking single-frame decode
+    path, where a device round trip a frame would be pure latency.
+    Returns False if the native lib is missing (callers take the device
+    decode)."""
+    lib = _load("rice")
+    if lib is None:
+        return False
+    assert rows.dtype == np.int32 and rows.flags.c_contiguous
+    n, stride = rows.shape
+    if n == 0:
+        return True
+    coeffs = np.ascontiguousarray(coeffs, dtype=np.int32)
+    assert coeffs.shape == (n, 12)  # ops/lpc.MAX_ORDER, hardcoded in the C++
+    shifts = np.ascontiguousarray(shifts, dtype=np.int32)
+    orders = np.ascontiguousarray(orders, dtype=np.int32)
+    fx = np.ascontiguousarray(np.asarray(is_fixed), dtype=np.uint8)
+    lengths = np.ascontiguousarray(lengths, dtype=np.int64)
+    lib.lpc_reconstruct_batch(
+        _ptr(rows, ctypes.c_int32), n, stride,
+        _ptr(coeffs, ctypes.c_int32), _ptr(shifts, ctypes.c_int32),
+        _ptr(orders, ctypes.c_int32), _ptr(fx, ctypes.c_uint8),
+        _ptr(lengths, ctypes.c_int64),
+    )
+    return True
+
+
+# ---------------- Single-file decode finalizer ----------------
+
+
+def midside_interleave_f32(rows, mid_side, frame_lengths, channels: int,
+                           scale: float):
+    """Single-file decode finalizer: mid/side undo + interleave + i32->f32
+    in one C++ pass over reconstructed rows [F*C, S]. The sums ``m + s`` and
+    ``m - s`` are taken in int64 and halved toward zero, as
+    ``lossless.decoder.decode_file_i32`` does on the host (the device decode
+    wraps them in int32 first: they differ only where a sum leaves int32).
+    Returns the flat f32 array, or None when the native lib is unavailable."""
+    lib = _load("blockpack")
+    if lib is None:
+        return None
+    rows = np.ascontiguousarray(rows, np.int32)
+    FC, S = rows.shape
+    F = FC // max(channels, 1)
+    mid_side = np.ascontiguousarray(mid_side, np.uint8)
+    frame_lengths = np.ascontiguousarray(frame_lengths, np.int64)
+    out = np.empty(int(frame_lengths.sum()) * channels, np.float32)
+    if F:
+        lib.midside_interleave_f32(
+            _ptr(rows, ctypes.c_int32), F, channels, S,
+            _ptr(mid_side, ctypes.c_uint8),
+            _ptr(frame_lengths, ctypes.c_int64),
+            ctypes.c_float(scale), _ptr(out, ctypes.c_float),
         )
     return out
 

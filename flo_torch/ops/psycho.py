@@ -82,6 +82,7 @@ def spreading_matrix_db() -> np.ndarray:
 
 
 @lru_cache(maxsize=None)
+@lru_cache(maxsize=None)
 def model_tables(sample_rate: int, fft_size: int):
     """Per-bin constants for a model instance (psychoacoustic.rs:36-76).
 

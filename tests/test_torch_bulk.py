@@ -215,3 +215,26 @@ def test_batch_decode_many_matches_reference():
     assert mixed[1].shape == want.shape
     assert np.abs(np.rint(mixed[1] * 32767.0) - np.rint(want * 32767.0)).max() <= 1
     _no_launches()
+
+
+@pytest.mark.parametrize("lengths", [[1, 11], [1, 13], [1, 11, 12, 13]])
+@pytest.mark.parametrize("analysis", ["exact", "device"])
+def test_one_sample_file_beside_short_ones(lengths, analysis):
+    """A batch that mixes a 1-sample file with other short ones. The
+    reference's bulk encode asserts on it (its re-pack of ``bad`` lanes); the
+    port has no such lanes and encodes it: with ``analysis="exact"`` each file
+    byte-equal to the reference's single-file encode of that clip alone, and
+    either way a bit-exact round trip."""
+    import flo_tpu
+
+    rng = np.random.default_rng(sum(lengths))
+    clips = [(0.5 * rng.standard_normal(2 * n)).clip(-1, 1).astype(np.float32) for n in lengths]
+    got = encoder.encode_many(clips, RATE, 2, 16, 5, analysis=analysis, device="cpu")
+    outs = decoder.decode_many([reader.read(b) for b in got], device="cpu")
+    for clip, blob, out in zip(clips, got, outs):
+        if analysis == "exact":
+            assert blob == flo_tpu.encode(clip, RATE, 2, analyze=False)
+            assert blob == encoder.encode(clip, RATE, 2, device="cpu")
+        ints = f32_to_i32_np(clip)
+        np.testing.assert_array_equal(out, ints.astype(np.float32) * np.float32(1 / 32767))
+    assert cuda_select.LAUNCHES == cuda_ricepack.LAUNCHES == cuda_lpc.LAUNCHES == 0

@@ -196,3 +196,107 @@ def test_convert_matches_reference():
     np.testing.assert_array_equal(convert.f32_to_i32(torch.from_numpy(x)).numpy(), ints)
     i = np.concatenate([ints, [-32768, 32767, 1 << 20, -(1 << 20)]]).astype(np.int32)
     np.testing.assert_array_equal(convert.i32_to_f32(torch.from_numpy(i)).numpy(), i32_to_f32_np(i))
+
+
+# ---------------- the host decode of one file, and the hosts without g++ ----------------
+
+
+@pytest.mark.parametrize("name", LOSSLESS)
+def test_decode_file_host_matches_decode_file(corpus_decodes, name):
+    """The single-file host decode (C++ Rice unpack, C++ reconstruction, C++
+    mid/side undo and interleave) gives the bulk decode's samples, and the
+    reference's host decode's."""
+    data = (EXAMPLES_DIR / name).read_bytes()
+    got = decoder.decode_file_host(torch_reader.read(data), device="cpu")
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, corpus_decodes[name][0])
+    np.testing.assert_array_equal(got, tpu_decoder.decode_file_host(tpu_reader.read(data)))
+    assert cuda_lpc.LAUNCHES == 0
+
+
+def test_decode_file_host_without_the_native_library(monkeypatch):
+    """No C++ toolchain: ``decode_file_host`` takes ``decode_file`` on the
+    device it is given; with the reconstruction but no finalizer, the numpy
+    mid/side undo. Same samples each way."""
+    from flo_torch import native
+
+    x = _clip(2, seed=3)
+    flo = torch_reader.read(flo_torch.encode(x, RATE, 2, analyze=False))
+    want = decoder.decode_file(flo, device="cpu")
+    np.testing.assert_array_equal(decoder.decode_file_host(flo, device="cpu"), want)
+    monkeypatch.setattr(native, "midside_interleave_f32", lambda *a: None)
+    np.testing.assert_array_equal(decoder.decode_file_host(flo, device="cpu"), want)
+    monkeypatch.setattr(native, "lpc_reconstruct_into", lambda *a: False)
+    seen = []
+    monkeypatch.setattr(decoder, "decode_file",
+                        lambda f, device="cuda": seen.append(device) or want)
+    np.testing.assert_array_equal(decoder.decode_file_host(flo, device="cpu"), want)
+    assert seen == ["cpu"]
+    assert decoder.decode_file_host(
+        torch_reader.read(flo_torch.encode(np.zeros(0, np.float32), RATE, 2, analyze=False)),
+        device="cpu").size == 0
+
+
+def test_midside_finalizer_sums_in_int64():
+    """``midside_interleave_f32`` follows the host form of the mid/side undo
+    (``decode_file_i32``: int64 sums, halved toward zero), not the device
+    form (int32-wrapping sums, ``div2_trunc``): they part only where a sum
+    leaves int32, as with two INT32_MIN."""
+    from flo_torch import native
+    from flo_torch.ops.intmath import div2_trunc
+
+    lo, hi = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+    rows = np.array([[lo, hi, -7, 7, lo], [lo, hi, 4, -2, 0]], np.int32)
+    out = native.midside_interleave_f32(rows, np.array([True]), np.array([5]), 2, 1.0)
+    if out is None:
+        pytest.skip("no C++ toolchain on this host")
+    m, s = rows[0].astype(np.int64), rows[1].astype(np.int64)
+    trunc = lambda t: np.where(t < 0, -((-t) // 2), t // 2)  # noqa: E731
+    host = np.stack([trunc(m + s), trunc(m - s)], axis=1).astype(np.int32).astype(np.float32)
+    np.testing.assert_array_equal(out.reshape(5, 2), host)
+    np.testing.assert_array_equal(
+        decoder._undo_midside_host(rows.reshape(1, 2, 5), np.array([True]), 2)[0].T
+        .astype(np.float32), host)
+    # The device form wraps the sum first: INT32_MIN + INT32_MIN -> 0 -> 0,
+    # where the host form has -2**31 (and div2_trunc(INT32_MIN) is +2**30).
+    wrapped = div2_trunc(torch.tensor([lo + lo], dtype=torch.int64).to(torch.int32))
+    assert int(wrapped[0]) == 0 and out[0] == np.float32(lo)
+    assert int(div2_trunc(torch.tensor([lo], dtype=torch.int32))[0]) == 1 << 30
+    assert out[8] == np.float32(-(1 << 30))  # (INT32_MIN + 0) / 2, exact in int64
+
+
+@pytest.mark.parametrize("channels,level", [(1, 5), (2, 5), (2, 8)])
+def test_encode_without_the_native_search(monkeypatch, channels, level):
+    """No C++ toolchain: ``encode_frame_host`` gives None, as the
+    reference's, and single-file ``encode`` takes the bulk ``"exact"`` path
+    on the device it is given: the same bytes."""
+    from flo_torch import native
+
+    x = _clip(channels, seed=5)
+    want = flo_torch.encode(x, RATE, channels, compression_level=level, analyze=False)
+    frame = encoder.encode_frame_host(x[: RATE * channels], RATE, channels, level, prune_lpc=2)
+    assert frame is not None and frame.frame_samples == RATE
+    assert encoder.encode_frame_host(np.zeros(0, np.float32), RATE, channels, level) is None
+    assert tpu_encoder.encode_frame_host(np.zeros(0, np.float32), RATE, channels, level) is None
+    monkeypatch.setattr(native, "lossless_search_batch", lambda *a, **k: None)
+    assert encoder.encode_frame_host(x[: RATE * channels], RATE, channels, level) is None
+    assert encoder._encode_frames_host_file(x, RATE, channels, level) is None
+    got = flo_torch.encode(x, RATE, channels, compression_level=level, analyze=False,
+                           device="cpu")
+    assert got == want
+    assert got == encoder.encode_many([x], RATE, channels, 16, level, analysis="exact",
+                                      device="cpu")[0]
+
+
+def test_pruned_frame_search_matches_reference():
+    """``prune_lpc`` reaches the C++ search as in the reference: the same
+    frame bytes for the streaming encoder's K = 2, and for the full search."""
+    from flo_torch.container import writer
+    from flo_tpu.container import writer as tpu_writer
+
+    for channels in (1, 2):
+        x = _clip(channels, seed=13)[: RATE * channels]
+        for prune in (0, 2, 3):
+            ours = encoder.encode_frame_host(x, RATE, channels, 5, prune_lpc=prune)
+            theirs = tpu_encoder.encode_frame_host(x, RATE, channels, 5, prune_lpc=prune)
+            assert writer.serialize_frame(ours) == tpu_writer.serialize_frame(theirs)

@@ -556,3 +556,67 @@ def test_native_sparse_wrappers_equal_reference():
     assert native.sparse_encode_entries_csr(entries, nnz, 1024) == blobs
     assert native.sparse_encode_entries_csr(np.zeros(0, np.int32), np.zeros(3, np.int32), 1024) == \
         ref_native.sparse_encode_entries_csr(np.zeros(0, np.int32), np.zeros(3, np.int32), 1024)
+
+
+# ---------------- non-finite input: two divergences, decided and pinned ----------------
+
+
+def _clip_with(bad):
+    rate, n = 44100, 5000
+    rng = np.random.default_rng(21)
+    t = np.arange(n) / rate
+    x = np.stack([0.4 * np.sin(2 * np.pi * 440 * t), 0.3 * np.sin(2 * np.pi * 660 * t)], axis=1)
+    x = (x + 0.01 * rng.standard_normal((n, 2))).astype(np.float32).reshape(-1)
+    x[2001] = bad
+    return x, rate
+
+
+def _near(size, stated):
+    return abs(size - stated) <= 0.01 * stated
+
+
+def test_nan_under_the_packed_transport_is_a_silent_sample():
+    """Decided: the port keeps its behaviour. ``lossy_marshal_f32`` leaves
+    INT32_MIN for a NaN in both packages. The port's int16 PCM upload wraps
+    it to 0, so a NaN sample is a silent sample, as in the lossless encoder
+    (NaN -> 0): 12,594 bytes, byte for byte the file of the clip with 0.0
+    in its place. The reference keeps int32 rows, so -2147483648/32767
+    reaches its MDCT: 10,923 bytes, and a full-scale click in the decode."""
+    x, rate = _clip_with(np.nan)
+    ours = lenc.encode_many([x], rate, 2, 0.55, transport_dtype="packed", device="cpu")[0]
+    theirs = tpu_lenc.encode_many([x], rate, 2, 0.55, transport_dtype="packed")[0]
+    assert _near(len(ours), 12_594) and _near(len(theirs), 10_923)
+    assert ours == lenc.encode_many([_clip_with(0.0)[0]], rate, 2, 0.55,
+                                    transport_dtype="packed", device="cpu")[0]
+    a, b = ldec.decode(ours, device="cpu"), np.asarray(tpu_ldec.decode(theirs))
+    assert np.isfinite(a).all() and np.isfinite(b).all()
+    assert np.abs(a).max() < 0.5 and np.abs(b).max() >= 1.0  # the reference's click
+
+
+@pytest.mark.parametrize("bad", [np.inf, -np.inf])
+def test_inf_under_the_float32_transport_is_a_full_scale_click(bad):
+    """Decided: the port keeps its behaviour. An infinity makes its blocks'
+    coefficients inf and NaN. The port's band maxima (25 slice maxima) keep
+    each band to its own bins, the inf coefficients saturate at the int16
+    limits, and the decode has a full-scale click where the infinity was:
+    what the ``"packed"`` transport makes of an infinity in both packages (a
+    clamped, full-scale sample). 10,790 bytes. The reference's one-hot
+    product spreads one NaN to all 25 bands (``inf * 0``), every coefficient
+    of the two blocks quantizes to 0 and they decode to silence: 10,666
+    bytes, the size it also gives for a NaN there."""
+    x, rate = _clip_with(bad)
+    ours = lenc.encode_many([x], rate, 2, 0.55, device="cpu")[0]
+    theirs = tpu_lenc.encode_many([x], rate, 2, 0.55)[0]
+    assert _near(len(ours), 10_790) and _near(len(theirs), 10_666)
+    x_nan = _clip_with(np.nan)[0]
+    assert len(tpu_lenc.encode_many([x_nan], rate, 2, 0.55)[0]) == len(theirs)
+    # With a NaN the two packages agree (10,666 bytes, one step apart).
+    ours_nan = lenc.encode_many([x_nan], rate, 2, 0.55, device="cpu")[0]
+    assert _near(len(ours_nan), 10_666)
+    a, b = ldec.decode(ours, device="cpu"), np.asarray(tpu_ldec.decode(theirs))
+    assert np.isfinite(a).all() and np.isfinite(b).all()
+    assert np.abs(a).max() >= 1.0 and np.abs(b).max() < 0.5  # the port's click
+    # Under "packed" both clamp the infinity to a full-scale sample and agree.
+    p_ours = lenc.encode_many([x], rate, 2, 0.55, transport_dtype="packed", device="cpu")[0]
+    p_theirs = tpu_lenc.encode_many([x], rate, 2, 0.55, transport_dtype="packed")[0]
+    assert _near(len(p_ours), len(p_theirs))

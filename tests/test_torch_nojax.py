@@ -66,6 +66,49 @@ _SCRIPT = textwrap.dedent(
         assert pathlib.Path(native.__file__).with_name("sparse.cpp").is_file()
         assert native.sparse_decode_entries([bytes([5, 0])], 5) is not None
     assert cuda_psycho.LAUNCHES == 0
+
+    # The rest of the public API: streaming, seeking, metadata, WAV ingest
+    # and the reflo facade.
+    from flo_torch import audio_io, debug, reflo, seeking
+    from flo_torch.streaming import DecoderState, StreamingDecoder, StreamingEncoder
+    enc = StreamingEncoder(rate, 2, device="cpu")
+    for i in range(0, len(x), 4096):
+        enc.push_samples(x[i : i + 4096])
+    streamed = enc.finalize()
+    assert flo_torch.validate(streamed)
+    for blob, exact_frames in ((streamed, True), (lossy, False)):
+        dec = StreamingDecoder(device="cpu")
+        for i in range(0, len(blob), 1000):
+            dec.feed(blob[i : i + 1000])
+        got = dec.decode_available()
+        want = flo_torch.decode(blob, device="cpu")
+        assert dec.state == DecoderState.FINISHED and got.shape == want.shape
+        if exact_frames:
+            assert np.array_equal(got, y) and np.array_equal(got, want)
+        else:
+            assert np.abs(np.rint(got * 32767.0) - np.rint(want * 32767.0)).max() <= 1
+    hit = flo_torch.seek_to_time(streamed, 1500)
+    assert (hit.frame_index, hit.sample_offset) == (1, rate // 2)
+    assert len(flo_torch.get_toc(streamed)) == 3 and seeking.get_toc is flo_torch.get_toc
+    assert np.array_equal(flo_torch.decode_frame_at(streamed, 1, device="cpu"),
+                          y[2 * rate : 4 * rate])
+    assert flo_torch.decode_frame_at(lossy, 2, device="cpu").shape == (2048,)
+    tagged = flo_torch.update_metadata_bytes(streamed, flo_torch.create_metadata("t", "a", "b"))
+    assert flo_torch.has_metadata(tagged) and flo_torch.get_metadata(tagged).title == "t"
+    assert flo_torch.strip_metadata(tagged) == streamed and flo_torch.validate(tagged)
+    assert flo_torch.version() == flo_torch.info(tagged).version
+    assert flo_torch.format_time_ms(61_000) == "1:01"
+    wav = audio_io.write_wav_to_bytes(x, rate, 2)
+    made = reflo.encode_from_audio(wav, reflo.EncodeOptions.lossless(), device="cpu")
+    assert reflo.validate_flo(made) and reflo.get_metadata(made).source_format
+    back, r, c, _ = audio_io.read_audio_from_bytes(reflo.decode_to_wav(made, device="cpu"))
+    assert (r, c) == (rate, 2) and np.array_equal(back, y)
+    made = reflo.encode_from_samples(x, rate, 2, None, reflo.EncodeOptions.lossy_quality(0.9),
+                                     device="cpu")
+    assert reflo.get_flo_info(made).is_lossy
+    with debug.debug_mode():
+        assert np.array_equal(flo_torch.decode(streamed, device="cpu"), y)
+    assert cuda_lpc.LAUNCHES == cuda_psycho.LAUNCHES == 0
     assert sys.modules["jax"] is None
     leaked = [m for m in sys.modules if m.startswith(("jax.", "jaxlib", "flo_tpu"))]
     assert not leaked, leaked
@@ -117,6 +160,33 @@ def test_port_runs_alone_without_the_reference(tmp_path):
     )
     assert res.returncode == 0, res.stderr
     assert "NOJAX-OK" in res.stdout and "ALONE-OK" in res.stdout
+
+
+_MODULES = ["streaming", "seeking", "reflo", "audio_io", "debug", "flac", "vorbis", "mp3", "aac",
+            "lib", "batch"]
+
+
+@pytest.fixture(scope="module")
+def imported_with_jax_blocked():
+    """One interpreter with ``jax`` blocked imports each module in turn and
+    says after each whether anything of JAX or of the reference got loaded."""
+    script = (
+        "import importlib, sys\n"
+        "sys.modules['jax'] = None\n"
+        f"for name in {_MODULES!r}:\n"
+        "    importlib.import_module('flo_torch.' + name)\n"
+        "    leaked = [m for m in sys.modules if m.startswith(('jax.', 'jaxlib', 'flo_tpu'))]\n"
+        "    print('IMPORTED', name, leaked)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    return res.stdout
+
+
+@pytest.mark.parametrize("module", _MODULES)
+def test_module_imports_with_jax_blocked(imported_with_jax_blocked, module):
+    assert f"IMPORTED {module} []" in imported_with_jax_blocked
 
 
 def _imported_modules(path):

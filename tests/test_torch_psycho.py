@@ -151,3 +151,46 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
         cuda_psycho.temporal_mask_cuda(torch.zeros(2, 3, 25))
     with pytest.raises(ValueError):
         cuda_psycho.temporal_mask_cuda(torch.zeros(3, 25))
+
+
+_SCAN_CASES = cuda_psycho.scan_cases()
+
+
+@pytest.mark.parametrize("index", range(len(_SCAN_CASES)), ids=[name for name, _ in _SCAN_CASES])
+def test_segmented_scan_model_equals_plain_loop(index):
+    """The kernel's algorithm (``cuda_psycho.segmented_model``: facts, two
+    chains over a window until they meet, the chain from the lane's start
+    where they do not) gives the plain loop's bits on every case the card is
+    held to. The kernel itself runs only on the card; this holds its
+    arithmetic. Zero signs are set aside here and only here: PyTorch's CPU
+    ``maximum`` returns either zero of a -0 and a +0 depending on whether its
+    vector loop or its tail handles the element, so the plain loop on the CPU
+    does not agree with itself from band to band (on the card both sides
+    give +0, and the smoke compares the signs too)."""
+    name, m = _SCAN_CASES[index]
+    want = psycho.temporal_mask_plain(torch.from_numpy(m)).numpy()
+    got = cuda_psycho.segmented_model(m)
+    assert got.shape == want.shape and got.dtype == np.float32
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    zero = ok & (want == 0)
+    assert np.array_equal(got[zero], want[zero])  # a zero where the loop has one
+    assert not np.signbit(got[zero]).any()  # and the card's sign of it: thr >= +0
+    rest = ok & ~zero
+    assert np.array_equal(got.view(np.int32)[rest], want.view(np.int32)[rest])
+
+
+def test_scan_cases_reach_every_branch():
+    """The cases cover hop counts around a fact block and a chunk, the four
+    lane counts, and inputs whose chains meet in the near window, in the warm
+    window, and not at all."""
+    hops = {m.shape[1] for _, m in _SCAN_CASES}
+    lanes = {m.shape[0] for _, m in _SCAN_CASES}
+    C, F = cuda_psycho.CHUNK, cuda_psycho.FACT_HOPS
+    assert {1, F - 1, F, F + 1, C - 1, C, C + 1, 2585, 5000} <= hops
+    assert {1, 8, 16, 33} <= lanes
+    assert cuda_psycho.NEAR % F == 0 and cuda_psycho.WARM % F == 0 and C % F == 0
+    names = " ".join(name for name, _ in _SCAN_CASES)
+    for word in ("NaN in first", "NaN in a middle", "NaN in the last", "+inf", "denormal",
+                 "-0.0", "negative input only", "+96 dB"):
+        assert word in names
