@@ -75,10 +75,31 @@ Phases, in order; any failure exits non-zero:
    above the medium SNR floor; (e) one lossless and one lossy corpus file
    streamed and sought on the card as on the CPU; (f) get_metadata,
    update_metadata and strip_metadata leave validate true and the DATA
-   chunk's bytes as they were. Wall times of (a)-(d) are printed.
+   chunk's bytes as they were. Wall times of (a)-(d) are printed;
+7. the CLI, the HTTP service and lane sharding on phase 5's clips, the
+   counters set to 0 before and read after, no plain version on the card:
+   (a) the CLI in-process (``flo_torch.cli.main``, ``--device cuda``):
+   encode of clip 0 as a WAV, decode (bit-exact; the DATA chunk is
+   ``reflo.encode_from_audio``'s), a lossy encode at ``--quality high`` and
+   its decode (above the medium SNR floor), ``info -m``, ``metadata
+   --json``, ``analysis -w -s --json``, ``validate``, then ``python3 -m
+   flo_torch info`` in a subprocess; (b) ``service.make_server(...,
+   device="cuda")`` on a thread: /v1/encode -> /v1/decode of the clip's
+   21 MB of float32 bit-exact, /v1/encode_transform -> /v1/decode within one
+   i16 step of ``flo_torch.decode``, /v1/decode_frame, /v1/seek and
+   /v1/analysis as the library, an encoder session of 4,096-sample pushes
+   (== ``StreamingEncoder``'s bytes) and a decoder session fed 64 KB a piece
+   (== ``decode``), /demo and /v1/version; (c) ``encode_many`` of the 8
+   clips over ``device_mesh()`` and over two shards of cuda:0 (== phase 5's
+   bytes; search and pack launched once a shard and chunk), ``decode_many``
+   over both (bit-exact), the lossy encode and decode over two shards
+   (within 1.5 i16 steps of unsharded), ``graft_entry.entry()`` on the card,
+   ``dryrun_multichip(1)`` and ``dryrun_multichip(2, [cuda:0, cuda:0])``.
+   Every request's and command's wall time is printed.
 
 The line before the last prints the card's name and power limit; before it,
-a JSON object with each kernel's launches (in its main path's run), error,
+a JSON object with each kernel's launches (in its main path's run, in
+phase 6 and in phase 7), error,
 times, bound (the larger of its bytes over the HBM rate and its operations
 over the ALU rate for their type, from this run's inputs) and share of the
 bound; the last line is
@@ -87,10 +108,14 @@ bound; the last line is
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import pathlib
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -744,9 +769,8 @@ LOSSY_KERNELS = ("temporal_mask",)
 def phase_main_path(gpu: str, clips) -> dict:
     """bench.py's headline lossless pass (bench.py:166): bulk encode on the
     card, then bulk decode on the card. Returns each kernel's launches in
-    that run."""
+    that run, and the encoded files."""
     from flo_torch.container import reader
-    from flo_torch.core import convert
     from flo_torch.lossless import decoder, encoder
     from flo_torch.ops import cuda_lpc
 
@@ -765,7 +789,7 @@ def phase_main_path(gpu: str, clips) -> dict:
     for name, n in launches.items():
         check(n > 0, f"the lossless main path never launched {name}")
     for i, (clip, out) in enumerate(zip(clips, outs)):
-        want = convert.i32_to_f32(convert.f32_to_i32(torch.from_numpy(clip))).numpy()
+        want = convert_round_trip(clip)
         check(out.shape == want.shape and np.isfinite(out).all(), f"clip {i}: shape/finite")
         check(np.array_equal(out, want), f"clip {i}: round trip not bit-exact")
 
@@ -810,7 +834,7 @@ def phase_main_path(gpu: str, clips) -> dict:
         f"{kernel_ms:.4f} ms = {100 * kernel_ms / 1e3 / dec2_s:.3f}% of the second decode [{gpu}]")
     log(f"[5 main] encode breakdown (analysis=device): {encode_breakdown(clips, encoded, gpu)}")
     log(f"[5 main] decode breakdown: {decode_breakdown(encoded, gpu)}")
-    return launches
+    return launches, encoded
 
 
 class Laps:
@@ -909,21 +933,29 @@ LOSSY_QUALITY = 1  # the medium preset, as bench.py's headline pass
 
 
 def plain_loop_guard():
-    """Replace the scan's plain loop with one that counts its calls on CUDA
-    tensors; returns (restore, calls)."""
-    from flo_torch.ops import psycho
+    """Replace each kernel's plain version (the scan's loop, the recurrence,
+    the search, the pack) with one that counts its calls on CUDA tensors;
+    returns (restore, calls)."""
+    from flo_torch.ops import blockspread, lpc, psycho, select
 
-    plain, calls = psycho.temporal_mask_plain, []
+    plains = [(psycho, "temporal_mask_plain"), (lpc, "reconstruct"),
+              (select, "encode_select_step"), (blockspread, "pack_lanes_words")]
+    saved, calls = [(m, name, getattr(m, name)) for m, name in plains], []
 
-    def guarded(masking):
-        if masking.device.type == "cuda":
-            calls.append(tuple(masking.shape))
-        return plain(masking)
+    def guard(name, plain):
+        def guarded(first, *args, **kwargs):
+            if first.device.type == "cuda":
+                calls.append((name, tuple(first.shape)))
+            return plain(first, *args, **kwargs)
 
-    psycho.temporal_mask_plain = guarded
+        return guarded
+
+    for m, name, plain in saved:
+        setattr(m, name, guard(name, plain))
 
     def restore():
-        psycho.temporal_mask_plain = plain
+        for m, name, plain in saved:
+            setattr(m, name, plain)
 
     return restore, calls
 
@@ -956,7 +988,7 @@ def phase_lossy_path(gpu: str, clips) -> dict:
         launches = {name: mods[name].LAUNCHES for name in LOSSY_KERNELS}
         for name, n in launches.items():
             check(n > 0, f"the lossy main path never launched {name}")
-        check(not plain_calls, f"the scan's plain loop ran on the card: {plain_calls}")
+        check(not plain_calls, f"a plain version ran on the card: {plain_calls}")
 
         hops = -(-(SECONDS * RATE + 1024) // 1024)
         snrs = []
@@ -1097,7 +1129,6 @@ def phase_api(gpu: str, clip: np.ndarray) -> dict:
     kernel's launches in this phase."""
     import flo_torch
     from flo_torch import audio_io, reflo
-    from flo_torch.core import convert
     from flo_torch.lossy.presets import QUALITY_U8_TO_F32
     from flo_torch.streaming import StreamingEncoder
 
@@ -1127,7 +1158,7 @@ def phase_api(gpu: str, clip: np.ndarray) -> dict:
         check(streamed == stream_encode("cpu"), "streaming encode: the card's bytes != the CPU's")
         check(flo_torch.validate(streamed), "streaming encode: CRC")
         whole = flo_torch.decode(streamed, device=DEVICE)
-        want = convert.i32_to_f32(convert.f32_to_i32(torch.from_numpy(clip))).numpy()
+        want = convert_round_trip(clip)
         check(np.array_equal(whole, want), "streaming encode: round trip not bit-exact")
         frames = lap("a: StreamingDecoder, lossless, pieces of 64 KB",
                      lambda: stream_decode(streamed, 65536, DEVICE))
@@ -1219,7 +1250,7 @@ def phase_api(gpu: str, clip: np.ndarray) -> dict:
             dur_ms = int(len(full) // flo_torch.info(data).channels * 1000
                          // flo_torch.info(data).sample_rate)
             check_seeks(fname, data, full, (0, 1, dur_ms // 2, max(dur_ms - 1, 0)), is_lossy)
-        check(not plain_calls, f"the scan's plain loop ran on the card: {plain_calls}")
+        check(not plain_calls, f"a plain version ran on the card: {plain_calls}")
     finally:
         restore()
 
@@ -1303,11 +1334,279 @@ def lossy_decode_breakdown(encoded, outs, gpu: str) -> str:
         laps.lap("dequantize+IMDCT+overlap-add")
         host = pcm.cpu().numpy()
         laps.lap("download")
-        ldec._finish_chunk(host, lo, counts, got)
+        ldec._finish_chunk(host, lo, lo + len(host), counts, got)
         laps.lap("scale+interleave")
     for i, (a, b) in enumerate(zip(got, outs)):
         within_one_step(a, b, f"staged lossy decode, clip {i}")
     return laps.report(gpu)
+
+
+def quiet(fn, *args):
+    """fn(*args) with its standard output captured: (result, the output)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        return fn(*args), buf.getvalue()
+
+
+def phase_cli(gpu: str, clip: np.ndarray, work: pathlib.Path, want: np.ndarray) -> None:
+    """(a) The CLI in-process, then once as ``python3 -m flo_torch``."""
+    from flo_torch import audio_io, cli, reflo
+
+    wav = work / "clip.wav"
+    wav.write_bytes(audio_io.write_wav_to_bytes(clip, RATE, CHANNELS))
+    out, back, lossy, lossy_back = (str(work / n) for n in ("clip.flo", "back.wav", "lossy.flo",
+                                                            "lossy.wav"))
+    mods = kernel_modules()
+    before = {name: m.LAUNCHES for name, m in mods.items()}
+    runs = [
+        ("encode", ["encode", str(wav), out, "--device", DEVICE]),
+        ("decode", ["decode", out, back, "--device", DEVICE]),
+        ("encode --lossy --quality high", ["encode", str(wav), lossy, "--lossy", "--quality",
+                                           "high", "--device", DEVICE]),
+        ("decode of the lossy file", ["decode", lossy, lossy_back, "--device", DEVICE]),
+        ("info -m", ["info", out, "-m"]),
+        ("metadata --json", ["metadata", out, "--json"]),
+        ("analysis -w -s --json", ["analysis", out, "-w", "-s", "--json", "--device", DEVICE]),
+        ("validate", ["validate", out]),
+    ]
+    laps, printed = {}, {}
+    for name, argv in runs:
+        t0 = time.perf_counter()
+        rc, printed[name] = quiet(cli.main, argv)
+        torch.cuda.synchronize()
+        laps[name] = time.perf_counter() - t0
+        check(rc == 0, f"flo-torch {name}: exit {rc}")
+    samples, rate, C, _ = audio_io.read_audio_from_bytes(pathlib.Path(back).read_bytes())
+    check((rate, C) == (RATE, CHANNELS) and np.array_equal(samples, want),
+          "CLI: lossless WAV -> flo -> WAV not bit-exact")
+    lib_flo = reflo.encode_from_audio(wav.read_bytes(), reflo.EncodeOptions.lossless(),
+                                      device=DEVICE)
+    check(data_chunk(pathlib.Path(out).read_bytes()) == data_chunk(lib_flo),
+          "CLI: the DATA chunk differs from reflo.encode_from_audio's")
+    samples, rate, C, _ = audio_io.read_audio_from_bytes(pathlib.Path(lossy_back).read_bytes())
+    snr = snr_db(clip, samples)
+    check(np.isfinite(samples).all() and snr > CHORD_FLOORS["medium"], f"CLI lossy SNR {snr:.2f}")
+    analysis = json.loads(printed["analysis -w -s --json"])
+    check(analysis["waveform"]["total_peaks"] == SECONDS * 60
+          and "Lossless" in printed["info -m"]
+          and json.loads(printed["metadata --json"])["flo_encoder_version"].startswith("flo_torch"),
+          "CLI: info / metadata / analysis output")
+    for name in ("lpc_reconstruct", "temporal_mask"):
+        check(mods[name].LAUNCHES > before[name], f"the CLI never launched {name}")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "flo_torch", "info", out], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    sub_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", "import torch"], check=True, timeout=300)
+    torch_s = time.perf_counter() - t0
+    check(res.returncode == 0 and "CRC valid:   yes" in res.stdout,
+          f"python3 -m flo_torch info: exit {res.returncode}: {res.stderr[-500:]}")
+    log(f"[7 cli] one {SECONDS} s stereo {RATE} Hz WAV ({wav.stat().st_size / 1e6:.1f} MB): "
+        f"encode -> decode bit-exact, DATA chunk == reflo.encode_from_audio's; lossy high "
+        f"{snr:.2f} dB; info, metadata, analysis ({analysis['loudness']['integrated_lufs']:.2f} "
+        f"LUFS), validate exit 0; python3 -m flo_torch info exit 0 in {sub_s:.3f} s (python3 -c "
+        f"'import torch' alone {torch_s:.3f} s) [{gpu}]")
+    for name, t in laps.items():
+        log(f"[7 cli] flo-torch {name}: {t:.3f} s [{gpu}]")
+
+
+def phase_service(gpu: str, clip: np.ndarray, want: np.ndarray) -> None:
+    """(b) The HTTP service on a thread, its codec calls on the card."""
+    import urllib.request
+
+    import flo_torch
+    from flo_torch import service
+    from flo_torch.core import ebu_r128
+    from flo_torch.streaming import StreamingEncoder
+
+    srv = service.make_server("127.0.0.1", 0, device=DEVICE)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    laps: dict = {}
+
+    def call(what, path, body=None, *, n=1):
+        t0 = time.perf_counter()
+        req = urllib.request.Request(url + path, data=body, method="POST" if body is not None
+                                     else "GET")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            status, headers, payload = r.status, dict(r.headers), r.read()
+        t, k = laps.get(what, (0.0, 0))
+        laps[what] = (t + time.perf_counter() - t0, k + n)
+        return status, headers, payload
+
+    try:
+        pcm = clip.astype("<f4").tobytes()
+        q = f"?sample_rate={RATE}&channels={CHANNELS}"
+        _, _, flo = call("/v1/encode", "/v1/encode" + q, pcm)
+        status, headers, raw = call("/v1/decode", "/v1/decode", flo)
+        check(status == 200 and headers["X-Sample-Rate"] == str(RATE)
+              and headers["X-Channels"] == str(CHANNELS)
+              and np.array_equal(np.frombuffer(raw, "<f4"), want),
+              "service: /v1/encode -> /v1/decode not bit-exact")
+        _, _, tflo = call("/v1/encode_transform", "/v1/encode_transform" + q + "&quality=0.55", pcm)
+        _, _, traw = call("/v1/decode (lossy)", "/v1/decode", tflo)
+        within_one_step(np.frombuffer(traw, "<f4").copy(), flo_torch.decode(tflo, device=DEVICE),
+                        "service: /v1/decode of the transform file against flo_torch.decode")
+        for i in (0, SECONDS // 2, SECONDS - 1):
+            _, _, fr = call("/v1/decode_frame", f"/v1/decode_frame?frame_index={i}", flo)
+            check(np.array_equal(np.frombuffer(fr, "<f4"),
+                                 flo_torch.decode_frame_at(flo, i, device=DEVICE)),
+                  f"service: /v1/decode_frame {i} != decode_frame_at")
+        _, _, sk = call("/v1/seek", "/v1/seek?time_ms=29999", flo)
+        check(json.loads(sk) == vars(flo_torch.seek_to_time(flo, 29999)), "service: /v1/seek")
+        _, _, an = call("/v1/analysis", "/v1/analysis?waveform=1&spectrum=1", flo)
+        an = json.loads(an)
+        m = ebu_r128.compute_ebu_r128_loudness(want, CHANNELS, RATE)
+        check(an["loudness"]["integrated_lufs"] == m.integrated_lufs
+              and an["duration_secs"] == SECONDS and len(an["spectrum"]["energy_profile"]) == 16,
+              "service: /v1/analysis against the library's loudness")
+
+        # An encoder session fed 4,096 samples a push, then finalize.
+        _, _, body = call("/v1/stream/encoder", "/v1/stream/encoder" + q + "&level=5", b"")
+        sid = json.loads(body)["session"]
+        for i in range(0, len(clip), 4096):
+            call("/v1/stream/<id>/push", f"/v1/stream/{sid}/push", pcm[4 * i : 4 * (i + 4096)])
+        _, _, streamed = call("/v1/stream/<id>/finalize", f"/v1/stream/{sid}/finalize", b"")
+        enc = StreamingEncoder(RATE, CHANNELS, device=DEVICE).with_compression(5)
+        for i in range(0, len(clip), 4096):
+            enc.push_samples(clip[i : i + 4096])
+        check(streamed == enc.finalize(), "service: encoder session != StreamingEncoder's bytes")
+        # A decoder session fed 64 KB a piece.
+        _, _, body = call("/v1/stream/decoder", "/v1/stream/decoder", b"")
+        sid = json.loads(body)["session"]
+        got = []
+        for i in range(0, len(streamed), 65536):
+            call("/v1/stream/<id>/feed", f"/v1/stream/{sid}/feed", streamed[i : i + 65536])
+            _, _, chunk = call("/v1/stream/<id>/decode_available",
+                               f"/v1/stream/{sid}/decode_available", b"")
+            got.append(np.frombuffer(chunk, "<f4"))
+        call("/v1/stream/<id>/close", f"/v1/stream/{sid}/close", b"")
+        check(np.array_equal(np.concatenate(got), flo_torch.decode(streamed, device=DEVICE)),
+              "service: decoder session != decode")
+        status, _, page = call("GET /demo", "/demo")
+        check(status == 200 and b"<title>flo_torch demo</title>" in page, "service: /demo")
+        status, _, ver = call("GET /v1/version", "/v1/version")
+        check(status == 200 and json.loads(ver)["version"] == flo_torch.version(), "/v1/version")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    log(f"[7 service] {len(pcm) / 1e6:.1f} MB of float32 PCM: /v1/encode -> /v1/decode "
+        f"bit-exact; /v1/encode_transform -> /v1/decode within one i16 step of flo_torch.decode; "
+        f"/v1/decode_frame, /v1/seek, /v1/analysis as the library; encoder session "
+        f"({laps['/v1/stream/<id>/push'][1]} pushes) == StreamingEncoder's bytes, decoder "
+        f"session ({laps['/v1/stream/<id>/feed'][1]} feeds of 64 KB) == decode; /demo and "
+        f"/v1/version answer [{gpu}]")
+    for what, (t, n) in laps.items():
+        log(f"[7 service] {what}: {t:.3f} s" + (f" for {n} requests" if n > 1 else "")
+            + f" [{gpu}]")
+
+
+def phase_sharding(gpu: str, clips, encoded) -> None:
+    """(c) The headline clips over a mesh of every card and over two shards
+    of cuda:0, against phase 5's unsharded bytes; the graft entry points."""
+    from flo_torch import graft_entry
+    from flo_torch.container import reader
+    from flo_torch.lossless import decoder, encoder
+    from flo_torch.lossy import decoder as ldec
+    from flo_torch.lossy import encoder as lenc
+    from flo_torch.lossy.presets import QUALITY_U8_TO_F32
+    from flo_torch.parallel import pipeline
+
+    mods = kernel_modules()
+    meshes = {"every card": pipeline.device_mesh(),
+              "two shards of cuda:0": pipeline.device_mesh([f"{DEVICE}:0"] * 2)}
+    n_chunks = len(encoder._chunk_bounds(FILES * SECONDS, FILES * SECONDS * CHANNELS * RATE))
+    flos = [reader.read(b) for b in encoded]
+    wants = [convert_round_trip(c) for c in clips]
+    for what, mesh in meshes.items():
+        before = {name: m.LAUNCHES for name, m in mods.items()}
+        t0 = time.perf_counter()
+        sharded = encoder.encode_many(clips, RATE, CHANNELS, 16, 5, mesh=mesh)
+        enc_s = time.perf_counter() - t0
+        check(sharded == encoded, f"sharded encode_many ({what}) != phase 5's bytes")
+        for name in ("lossless_select", "rice_pack"):
+            n = mods[name].LAUNCHES - before[name]
+            check(n == mesh.size * n_chunks, f"{name}: {n} launches over {what}, "
+                  f"{mesh.size} shards x {n_chunks} chunks expected")
+        t0 = time.perf_counter()
+        outs = decoder.decode_many(flos, mesh=mesh)
+        dec_s = time.perf_counter() - t0
+        check(all(np.array_equal(o, w) for o, w in zip(outs, wants)),
+              f"sharded decode_many ({what}) not bit-exact")
+        log(f"[7 mesh] {what} ({mesh.size} shard{'s' if mesh.size > 1 else ''}): encode_many "
+            f"(analysis=device) == phase 5's bytes in {enc_s:.3f} s, {mesh.size} x {n_chunks} "
+            f"search and pack launches; decode_many bit-exact in {dec_s:.3f} s [{gpu}]")
+
+    two = meshes["two shards of cuda:0"]
+    q = QUALITY_U8_TO_F32[LOSSY_QUALITY]
+    plain_bytes = lenc.encode_many(clips, RATE, CHANNELS, q, transport_dtype="packed",
+                                   device=DEVICE)
+    t0 = time.perf_counter()
+    shard_bytes = lenc.encode_many(clips, RATE, CHANNELS, q, transport_dtype="packed", mesh=two)
+    enc_s = time.perf_counter() - t0
+    ref_out = ldec.decode_many([reader.read(b) for b in plain_bytes], device=DEVICE)
+    t0 = time.perf_counter()
+    shd_out = ldec.decode_many([reader.read(b) for b in shard_bytes], mesh=two)
+    dec_s = time.perf_counter() - t0
+    worst = 0.0
+    for a, b in zip(shd_out, ref_out):
+        check(a.shape == b.shape, "sharded lossy decode length")
+        worst = max(worst, float(np.abs(a - b).max()) / float(I16_STEP))
+    check(worst <= 1.5, f"sharded lossy round trip {worst:.3f} i16 steps from unsharded")
+    same = "equal" if shard_bytes == plain_bytes else "NOT equal"
+    log(f"[7 mesh] lossy quality {LOSSY_QUALITY}, packed, two shards of cuda:0: encode "
+        f"{enc_s:.3f} s, decode {dec_s:.3f} s; bytes {same} to unsharded, decodes "
+        f"{worst:.3f} i16 steps apart at most (limit 1.5) [{gpu}]")
+
+    fn, args = graft_entry.entry()
+    residuals, size, qb, sf = fn(*args)
+    cpu_fn, cpu_args = graft_entry.entry("cpu")
+    cpu = cpu_fn(*cpu_args)
+    check(torch.equal(residuals.cpu(), cpu[0]) and torch.equal(size.cpu(), cpu[1])
+          and qb.shape == (2, 4, 1024) and bool(sf.isfinite().all()),
+          "graft_entry.entry() on the card: residuals / sizes != the CPU's")
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(1)
+    graft_entry.dryrun_multichip(2, devices=[f"{DEVICE}:0"] * 2)
+    dry_s = time.perf_counter() - t0
+    log(f"[7 mesh] graft_entry.entry() on the card: residuals and sizes == the CPU's, q "
+        f"{int((qb.cpu() != cpu[2]).sum())} of {qb.numel()} apart from the CPU's; "
+        f"dryrun_multichip(1) and dryrun_multichip(2, [cuda:0, cuda:0]) pass in {dry_s:.3f} s "
+        f"[{gpu}]")
+
+
+def convert_round_trip(clip: np.ndarray) -> np.ndarray:
+    """What a lossless round trip of ``clip`` decodes to: f32 -> i32 -> f32."""
+    from flo_torch.core import convert
+
+    return convert.i32_to_f32(convert.f32_to_i32(torch.from_numpy(clip))).numpy()
+
+
+def phase_surfaces(gpu: str, clips, encoded) -> dict:
+    """Phase 7: the CLI, the HTTP service and lane sharding on the card, on
+    phase 5's clips; returns each kernel's launches in the phase."""
+    mods = kernel_modules()
+    restore, plain_calls = plain_loop_guard()
+    torch.cuda.synchronize()
+    for m in mods.values():
+        m.LAUNCHES = 0
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            want = convert_round_trip(clips[0])
+            phase_cli(gpu, clips[0], pathlib.Path(tmp), want)
+            phase_service(gpu, clips[0], want)
+        phase_sharding(gpu, clips, encoded)
+        check(not plain_calls, f"a plain version ran on the card: {plain_calls}")
+    finally:
+        restore()
+    launches = {name: m.LAUNCHES for name, m in mods.items()}
+    for name, n in launches.items():
+        check(n > 0, f"phase 7 never launched {name}")
+    log(f"[7] launches in phase 7 {launches}, plain versions on the card 0")
+    return launches
 
 
 KERNELS = {
@@ -1331,12 +1630,14 @@ def main() -> int:
     del search
     measured["temporal_mask"] = phase_kernel_temporal(gpu)
     phase_corpus(gpu)
-    launches = phase_main_path(gpu, clips)
+    launches, encoded = phase_main_path(gpu, clips)
     launches.update(phase_lossy_path(gpu, clips))
     api_launches = phase_api(gpu, clips[0])
+    surface_launches = phase_surfaces(gpu, clips, encoded)
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "launches_api_phase": api_launches[name], **measured[name],
+         "launches": launches[name], "launches_api_phase": api_launches[name],
+         "launches_phase7": surface_launches[name], **measured[name],
          "share_of_bound": measured[name]["bound_ms"] / measured[name]["ms"],
          "library_ms": None}
         for name, (src, rep) in KERNELS.items()

@@ -13,6 +13,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+import torch
 
 from . import debug
 from .container import reader
@@ -45,6 +46,16 @@ class AudioInfo:
 
 
 _META_SIZE_OFFSET = 62  # byte offset of meta_size in the file (lib.rs:1090-1092)
+
+
+def require_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises where it names a CUDA device
+    and the host has none. The entry points (CLI, service, graft_entry)
+    call it first: they never carry on on the CPU unless asked to."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(dev)!r}: this host has no CUDA device (pass 'cpu')")
+    return dev
 
 
 def add_analysis_data_if_missing(

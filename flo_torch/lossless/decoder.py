@@ -27,6 +27,7 @@ from ..futures import BulkFuture
 from ..core.convert import i32_to_f32, i32_to_f32_np
 from ..ops import lpc
 from ..ops.intmath import div2_trunc
+from ..parallel import pipeline
 
 
 def _marshal_lanes(flo: FloFile):
@@ -155,11 +156,19 @@ def _concat_group(group):
     return rows, coeffs, shifts, orders, is_fixed, mid_side
 
 
-def decode_many_async(flos: list[FloFile], *, device="cuda") -> BulkFuture:
+def decode_many_async(flos: list[FloFile], *, device="cuda", mesh=None) -> BulkFuture:
     """Bulk decode: every file's lanes in one device reconstruction per
     channel count. The device work is dispatched before this returns; the
     future's ``result()`` copies the samples back and trims and interleaves
-    them on the host, giving one flat interleaved float32 array per file."""
+    them on the host, giving one flat interleaved float32 array per file.
+
+    ``mesh`` (or the ambient ``parallel.use_mesh``; it overrides ``device``):
+    each group's frames are padded to a mesh multiple with inert lanes and
+    cut on frame boundaries into one shard a device
+    (``parallel.pipeline.decode_step``); the samples are the unsharded ones.
+    Without one, ``device`` is a mesh of one shard.
+    """
+    mesh = pipeline.active_mesh(mesh) or pipeline.Mesh((device,))
     outs: list[np.ndarray] = [np.zeros(0, dtype=np.float32)] * len(flos)
     by_channels: dict[int, list] = {}
     for i, f in enumerate(flos):
@@ -169,27 +178,31 @@ def decode_many_async(flos: list[FloFile], *, device="cuda") -> BulkFuture:
 
     pending = []
     for channels, group in by_channels.items():
-        lanes = lanes_to_device(*_concat_group(group), device=device)
-        pending.append((group, _device_decode(*lanes, channels=channels)))
+        arrays = _concat_group(group)
+        lanes = pipeline.shard_batch(mesh, *arrays[:5], unit=channels)
+        mid_side = pipeline.put_batch(arrays[5], mesh)
+        pending.append((group, pipeline.decode_step(*lanes, mid_side, channels=channels)))
 
     def collect():
-        for group, fsc in pending:
-            host = fsc.cpu().numpy()  # [F, S, C]
+        for group, shards in pending:
+            hosts = [fsc.cpu().numpy() for fsc in shards]  # [F_i, S, C], equal F_i
+            per = hosts[0].shape[0]
             f0 = 0
             for i, m in group:
                 frame_lengths = m[7]
-                outs[i] = np.concatenate(
-                    [host[f0 + k, :n].reshape(-1) for k, n in enumerate(frame_lengths)]
-                )
+                outs[i] = np.concatenate([
+                    hosts[(f0 + k) // per][(f0 + k) % per, :n].reshape(-1)
+                    for k, n in enumerate(frame_lengths)
+                ])
                 f0 += len(frame_lengths)
         return outs
 
     return BulkFuture(collect)
 
 
-def decode_many(flos: list[FloFile], *, device="cuda") -> list[np.ndarray]:
+def decode_many(flos: list[FloFile], *, device="cuda", mesh=None) -> list[np.ndarray]:
     """Blocking form of :func:`decode_many_async`."""
-    return decode_many_async(flos, device=device).result()
+    return decode_many_async(flos, device=device, mesh=mesh).result()
 
 
 def decode_file(flo: FloFile, *, device="cuda") -> np.ndarray:

@@ -24,7 +24,8 @@ device pass per chunk.
 
 ``analysis="exact"`` gives the single-file encode's bytes. The reference's
 TPU wire transport (block-packed uploads, speculative fetches), its host
-re-pack of ``bad`` lanes and its ``mesh`` argument have no counterpart.
+re-pack of ``bad`` lanes have no counterpart. Under a mesh
+(``parallel.pipeline``) each chunk's frames are sharded over its devices.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ from ..core.convert import f32_to_i32_np
 from ..core.types import ChannelData, Frame
 from ..futures import BulkFuture
 from ..ops import blockspread, lpc, select
+from ..parallel import pipeline
 
 _I16_MIN, _I16_MAX = -(1 << 15), (1 << 15) - 1
 
@@ -184,6 +186,7 @@ def encode_many_to_frames_async(
     compat: str = "fixed",
     *,
     device="cuda",
+    mesh=None,
 ) -> BulkFuture:
     """Encode many files (same rate and channels) in one batched pass.
 
@@ -193,6 +196,13 @@ def encode_many_to_frames_async(
     yields one frame list per input file. Integer input is the sample
     domain itself and must lie in the int16 range (``ValueError``
     otherwise).
+
+    ``mesh`` (or the ambient ``parallel.use_mesh``; it overrides
+    ``device``): each chunk's frames are padded to a mesh multiple with
+    inert frames (``nvalid = 0``) and cut into one shard a device; the
+    shards' frames are joined in lane order and the padding dropped. The
+    bytes are the unsharded ones. Without one, ``device`` is a mesh of one
+    shard.
     """
     C = int(channels)
     spf = int(sample_rate)
@@ -204,14 +214,18 @@ def encode_many_to_frames_async(
     lanes_batch, nvalid_f, all_frames, active_slots = _marshal(samples_list, C, spf)
     if not active_slots:
         return BulkFuture(lambda: all_frames)
-    states = _dispatch_active_frames(
-        lanes_batch, nvalid_f, C, kinds, cand_orders, analysis, device=device
+    chunks = _dispatch_active_frames(
+        lanes_batch, nvalid_f, C, kinds, cand_orders, analysis,
+        pipeline.active_mesh(mesh) or pipeline.Mesh((device,)),
     )
 
     def fin() -> List[List[Frame]]:
         frames_out: List[Frame] = []
-        for st in states:
-            frames_out.extend(_collect_chunk(st, C, kinds, cand_orders, max_order, compat))
+        for shards, n_frames in chunks:
+            chunk_frames: List[Frame] = []
+            for st in shards:
+                chunk_frames.extend(_collect_chunk(st, C, kinds, cand_orders, max_order, compat))
+            frames_out.extend(chunk_frames[:n_frames])  # mesh padding dropped
         for (fidx, fi), frame in zip(active_slots, frames_out):
             all_frames[fidx][fi] = frame
         return all_frames
@@ -228,10 +242,12 @@ def encode_many_to_frames(
     compat: str = "fixed",
     *,
     device="cuda",
+    mesh=None,
 ) -> List[List[Frame]]:
     """Blocking form of :func:`encode_many_to_frames_async`."""
     return encode_many_to_frames_async(
-        samples_list, sample_rate, channels, compression_level, analysis, compat, device=device
+        samples_list, sample_rate, channels, compression_level, analysis, compat, device=device,
+        mesh=mesh,
     ).result()
 
 
@@ -250,19 +266,21 @@ def _chunk_bounds(n_frames: int, n_samples: int):
     return [(g * chunk, min((g + 1) * chunk, n_frames)) for g in range(G) if g * chunk < n_frames]
 
 
-def _dispatch_active_frames(
-    lanes, frame_samples, C, kinds, cand_orders, analysis: str = "exact", *, device="cuda"
-):
+def _dispatch_active_frames(lanes, frame_samples, C, kinds, cand_orders, analysis, mesh):
     """Dispatch a batch of non-silent frames (lane-major [F'*C, S]; frame f's
-    channel c at row f*C+c) as sub-batches (:func:`_chunk_bounds`); returns
-    the chunk states for :func:`_collect_chunk`."""
-    return [
-        _dispatch_chunk(
-            lanes[lo * C : hi * C], frame_samples[lo:hi], C, kinds, cand_orders, analysis,
-            device=device,
-        )
-        for lo, hi in _chunk_bounds(lanes.shape[0] // C, lanes.size)
-    ]
+    channel c at row f*C+c) as sub-batches (:func:`_chunk_bounds`), each cut
+    into one shard a device of ``mesh`` (a one-device mesh: the sub-batch
+    whole); returns for each sub-batch (its shards' states for
+    :func:`_collect_chunk`, its frame count)."""
+    chunks = []
+    for lo, hi in _chunk_bounds(lanes.shape[0] // C, lanes.size):
+        parts = zip(pipeline.split_batch(lanes[lo * C : hi * C], mesh, C),
+                    pipeline.split_batch(frame_samples[lo:hi], mesh), mesh.devices)
+        chunks.append((
+            [_dispatch_chunk(l, f, C, kinds, cand_orders, analysis, device=d) for l, f, d in parts],
+            hi - lo,
+        ))
+    return chunks
 
 
 def host_analysis(lanes_in, frame_samples, C, kinds, cand_orders):
@@ -604,6 +622,7 @@ def encode_many_async(
     analysis: str = "device",
     *,
     device="cuda",
+    mesh=None,
 ) -> BulkFuture:
     """Bulk encode, dispatched immediately; ``result()`` yields the file bytes.
 
@@ -615,7 +634,7 @@ def encode_many_async(
     """
     level = min(int(compression_level), 9)
     fut = encode_many_to_frames_async(
-        samples_list, sample_rate, channels, level, analysis, device=device
+        samples_list, sample_rate, channels, level, analysis, device=device, mesh=mesh
     )
     metas = metadata_list or [b""] * len(samples_list)
     return fut.then(
@@ -636,12 +655,13 @@ def encode_many(
     analysis: str = "device",
     *,
     device="cuda",
+    mesh=None,
 ) -> List[bytes]:
     """Bulk encode: many files, one device pass (blocking form of
     :func:`encode_many_async`)."""
     return encode_many_async(
         samples_list, sample_rate, channels, bit_depth, compression_level, metadata_list,
-        analysis, device=device,
+        analysis, device=device, mesh=mesh,
     ).result()
 
 

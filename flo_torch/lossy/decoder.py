@@ -4,7 +4,8 @@ Behavioral model: libflo/src/lossy/decoder.rs + lib.rs:325-352, batched as in
 the reference's ``lossy/decoder.py``: all frames' coefficients are
 dequantized and IMDCT'd in one pass, the reference's stateful per-channel
 overlap buffer becomes a stateless shifted add over the block axis, and the
-pre-roll frame's output is dropped (lib.rs:341-345).
+pre-roll frame's output is dropped (lib.rs:341-345). Under a mesh
+(``parallel.pipeline``) each chunk's files are sharded over its devices.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from ..container import reader
 from ..core.types import FloFile
 from ..futures import BulkFuture
 from ..ops import compact, mdct, psycho
+from ..parallel import pipeline
 from .sparse import deserialize_sparse
 
 _BLOCK_SIZES = {0: 2048, 1: 256, 2: 2048, 3: 2048}  # Long/Short/Start/Stop
@@ -207,13 +209,13 @@ def _chunks(counts, C: int, sf, entries_all, stream_nnz):
         yield lo, entries_all[e_lo:e_hi], g.reshape(-1), sf[lo:hi]
 
 
-def _finish_chunk(host: np.ndarray, lo: int, counts, outs: list) -> None:
-    """host [files, T, n2, C] int16 of the chunk that starts at file ``lo``
-    -> each file's interleaved float32 (x 1/32767) into ``outs``. Frame 0 is
-    the pre-roll and is dropped; frames past a file's own count are the
-    batch's padding."""
+def _finish_chunk(host: np.ndarray, lo: int, hi: int, counts, outs: list) -> None:
+    """host [files, T, n2, C] int16 of the files from ``lo`` on -> each
+    file's interleaved float32 (x 1/32767) into ``outs``. Frame 0 is the
+    pre-roll and is dropped; frames past a file's own count are the batch's
+    padding, and files from ``hi`` on are a mesh's padding."""
     scale = np.float32(1.0 / 32767.0)
-    for k in range(host.shape[0]):
+    for k in range(min(host.shape[0], hi - lo)):
         body = host[k, 1 : max(int(counts[lo + k]), 1)]
         outs[lo + k] = np.multiply(body.reshape(-1), scale, dtype=np.float32)  # one pass
 
@@ -223,13 +225,32 @@ def to_device(*arrays, device="cuda"):
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays)
 
 
-def decode_many_async(flos: list[FloFile], *, device="cuda") -> BulkFuture:
+def _shard_files(entries, row_nnz, sf, mesh):
+    """One chunk's (entries, row_nnz, sf) cut by files into one shard a
+    device of ``mesh`` (one device: the chunk whole), the files padded to a
+    mesh multiple with files of no frame (zero scale factors, no entry):
+    [(entries, row_nnz, sf, device)]."""
+    nnz = pipeline.split_batch(row_nnz.reshape(sf.shape[0], -1), mesh)
+    ends = np.cumsum([int(g.sum()) for g in nnz])[:-1]
+    return [
+        (e, g.reshape(-1), s, d)
+        for e, g, s, d in zip(np.split(entries, ends), nnz, pipeline.split_batch(sf, mesh),
+                              mesh.devices)
+    ]
+
+
+def decode_many_async(flos: list[FloFile], *, device="cuda", mesh=None) -> BulkFuture:
     """Bulk decode: all files' blocks in chunked device calls (T padded to
     the batch max; every file must share sample_rate/block size/channels).
     All device work is dispatched before this returns; ``result()`` brings
     the int16 samples down, scales them by 1/32767 to float32, drops each
     file's pre-roll frame and gives one interleaved array per file.
+
+    ``mesh`` (or the ambient ``parallel.use_mesh``; it overrides
+    ``device``): each chunk's files are padded to a mesh multiple and cut
+    into one shard a device. Without one, ``device`` is a mesh of one shard.
     """
+    mesh = pipeline.active_mesh(mesh) or pipeline.Mesh((device,))
     batch = _parse_batch(flos)
     if batch is None:
         return BulkFuture(lambda: [np.zeros(0, dtype=np.float32) for _ in flos])
@@ -238,19 +259,24 @@ def decode_many_async(flos: list[FloFile], *, device="cuda") -> BulkFuture:
     # i16 grid.
     entries_all, stream_nnz = _sparse_entries(all_streams, n // 2)
     handles = [
-        (lo, _decode_blocks_packed(*to_device(entries, row_nnz, sf_c, device=device), rate, n))
+        (lo, lo + sf_c.shape[0], [
+            _decode_blocks_packed(*to_device(e, g, s, device=d), rate, n)
+            for e, g, s, d in _shard_files(entries, row_nnz, sf_c, mesh)
+        ])
         for lo, entries, row_nnz, sf_c in _chunks(counts, C, sf, entries_all, stream_nnz)
     ]
 
     def fin() -> list[np.ndarray]:
         outs = [None] * len(flos)
-        for lo, pcm in handles:
-            _finish_chunk(pcm.cpu().numpy(), lo, counts, outs)
+        for lo, hi, shards in handles:
+            for pcm in shards:
+                _finish_chunk(pcm.cpu().numpy(), lo, hi, counts, outs)
+                lo += pcm.shape[0]
         return outs
 
     return BulkFuture(fin)
 
 
-def decode_many(flos: list[FloFile], *, device="cuda") -> list[np.ndarray]:
+def decode_many(flos: list[FloFile], *, device="cuda", mesh=None) -> list[np.ndarray]:
     """Blocking form of decode_many_async."""
-    return decode_many_async(flos, device=device).result()
+    return decode_many_async(flos, device=device, mesh=mesh).result()

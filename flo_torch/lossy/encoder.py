@@ -5,7 +5,8 @@ reference's ``lossy/encoder.py``: the whole file becomes a [C, T, 2048] block
 tensor (a 50%-overlap strided view), one pass computes MDCT -> SMR (the
 temporal-masking scan over T) -> per-Bark scale factors -> i16 quantization
 for every block at once, the nonzeros are compacted on the device, and the
-host packs the sparse RLE payloads and the container.
+host packs the sparse RLE payloads and the container. Under a mesh
+(``parallel.pipeline``) each chunk's lanes are sharded over its devices.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from ..core.constants import FrameType
 from ..core.types import ChannelData, Frame
 from ..futures import BulkFuture
 from ..ops import compact, mdct, psycho
+from ..parallel import pipeline
 from .sparse import serialize_sparse
 
 BLOCK = mdct.LONG_N  # always Long/2048 + Vorbis (encoder.rs:36-53)
@@ -89,11 +91,16 @@ def _blocks(padded):
     return padded.unfold(-1, BLOCK, HOP)
 
 
+def _encode_blocks(blocks, sample_rate: int, thr: float):
+    """Blocks [..., T, 2048] float32 on the device -> (q [..., T, 1024] int16,
+    sf [..., T, 25] float32): the MDCT, then :func:`_quantize_coeffs`."""
+    return _quantize_coeffs(mdct.forward(blocks, BLOCK, WINDOW), sample_rate, thr)
+
+
 def _encode_padded(padded, sample_rate: int, thr: float):
     """padded [C, (T+1)*1024] signal on the device -> (q [C, T, 1024] int16,
     sf [C, T, 25] float32)."""
-    coeffs = mdct.forward(_blocks(padded), BLOCK, WINDOW)
-    return _quantize_coeffs(coeffs, sample_rate, thr)
+    return _encode_blocks(_blocks(padded), sample_rate, thr)
 
 
 def encode_sf_u16(sf: np.ndarray) -> np.ndarray:
@@ -185,13 +192,20 @@ def _chunk_bounds(N: int, C: int):
     return [(lo, min(lo + half, N * C)) for lo in range(0, N * C, half)]
 
 
-def _download_chunk(q, sf):
-    """Compact one chunk's nonzeros on the device and bring them down:
-    (entries int32 [total], row_nnz int32 [Lc*T], sf float32 [Lc, T, 25]) as
-    numpy. The compaction's count is the chunk's one wait."""
-    Lc, T, n2 = q.shape
-    entries, row_nnz = compact.compact_nonzeros(q.reshape(Lc * T, n2))
-    return entries.cpu().numpy(), row_nnz.cpu().numpy(), sf.cpu().numpy()
+def _download_chunk(shards, lanes: int):
+    """Compact one chunk's nonzeros on each shard's device and bring them
+    down, joined in lane order: (entries int32 [total], row_nnz int32
+    [lanes*T], sf float32 [lanes, T, 25]) as numpy. A compaction's count is
+    its shard's one wait. Lanes past ``lanes`` (mesh padding: zero blocks,
+    no nonzero) are dropped."""
+    parts = []
+    for q, sf in shards:
+        Lc, T, n2 = q.shape
+        entries, row_nnz = compact.compact_nonzeros(q.reshape(Lc * T, n2))
+        parts.append((entries.cpu().numpy(), row_nnz.cpu().numpy(), sf.cpu().numpy()))
+    entries, row_nnz, sf = (np.concatenate(x) for x in zip(*parts))
+    row_nnz = row_nnz[: lanes * sf.shape[1]]
+    return entries[: int(row_nnz.sum())], row_nnz, sf[:lanes]
 
 
 def _sparse_streams(ent_parts, t_max: int):
@@ -239,7 +253,7 @@ def _pack_frames(ent_parts, hops, C: int, t_max: int) -> list[list[Frame]]:
 
 def encode_many_to_frames_async(
     samples_list, sample_rate: int, channels: int, quality: float,
-    transport_dtype=np.float32, *, device="cuda",
+    transport_dtype=np.float32, *, device="cuda", mesh=None,
 ) -> BulkFuture:
     """Bulk blocked MDCT encode: all files' channel lanes stacked into
     chunked device calls (hop counts padded to the batch max; padding blocks
@@ -251,7 +265,14 @@ def encode_many_to_frames_async(
     f16-quantized (~1e-4), inside the lossy tolerance at every preset.
     transport_dtype="packed" uploads int16 PCM (i16-rounded, ~1.5e-5
     quantization; one C++ host pass). The legacy alias "rice16" is accepted.
+
+    ``mesh`` (or the ambient ``parallel.use_mesh``; it overrides
+    ``device``): each chunk's lanes are padded to a mesh multiple with zero
+    lanes and cut into one shard a device; decodes lie within 1.5 i16 steps
+    of the unsharded encode's. Without one, ``device`` is a mesh of one
+    shard.
     """
+    mesh = pipeline.active_mesh(mesh) or pipeline.Mesh((device,))
     C = int(channels)
     stacked, hops = _marshal(samples_list, C, transport_dtype)
     t_max = max(hops, default=0)
@@ -259,23 +280,24 @@ def encode_many_to_frames_async(
         return BulkFuture(lambda: [[] for _ in samples_list])
     thr = smr_threshold(quality)
     handles = [
-        _encode_padded(torch.from_numpy(stacked[lo:hi]).to(device), int(sample_rate), thr)
+        ([_encode_padded(p, int(sample_rate), thr) for p in pipeline.put_batch(stacked[lo:hi], mesh)],
+         hi - lo)
         for lo, hi in _chunk_bounds(len(hops), C)
     ]
 
     def fin() -> list[list[Frame]]:
-        return _pack_frames([_download_chunk(q, sf) for q, sf in handles], hops, C, t_max)
+        return _pack_frames([_download_chunk(*h) for h in handles], hops, C, t_max)
 
     return BulkFuture(fin)
 
 
 def encode_many_to_frames(
     samples_list, sample_rate: int, channels: int, quality: float,
-    transport_dtype=np.float32, *, device="cuda",
+    transport_dtype=np.float32, *, device="cuda", mesh=None,
 ) -> list[list[Frame]]:
     """Blocking form of encode_many_to_frames_async."""
     return encode_many_to_frames_async(
-        samples_list, sample_rate, channels, quality, transport_dtype, device=device
+        samples_list, sample_rate, channels, quality, transport_dtype, device=device, mesh=mesh
     ).result()
 
 
@@ -303,10 +325,11 @@ def encode_many_async(
     transport_dtype=np.float32,
     *,
     device="cuda",
+    mesh=None,
 ) -> BulkFuture:
     """Bulk lossy encode, dispatched immediately; result() -> file bytes."""
     fut = encode_many_to_frames_async(
-        samples_list, sample_rate, channels, quality, transport_dtype, device=device
+        samples_list, sample_rate, channels, quality, transport_dtype, device=device, mesh=mesh
     )
     metas = metadata_list or [b""] * len(samples_list)
     return fut.then(
@@ -330,11 +353,12 @@ def encode_many(
     transport_dtype=np.float32,
     *,
     device="cuda",
+    mesh=None,
 ) -> list[bytes]:
     """Bulk lossy encode: one device pass for every file (blocking form)."""
     return encode_many_async(
         samples_list, sample_rate, channels, quality, metadata_list, bit_depth,
-        transport_dtype, device=device,
+        transport_dtype, device=device, mesh=mesh,
     ).result()
 
 

@@ -86,19 +86,24 @@ def reconstruct_best(residuals, coeffs, shifts, orders, is_fixed) -> torch.Tenso
 def autocorrelation_device(lanes: torch.Tensor, nvalid: torch.Tensor, max_order: int):
     """Autocorrelation lags 0..max_order in float32, on the lanes' device.
 
-    The int32 -> float32 cast is exact for the codec's sample domain
-    (|s| < 2**17); the float32 dot products are approximate, which only moves
-    the coefficients the Levinson recursion proposes (they travel in the
-    stream, so the round trip stays exact). lanes [L, S] int32, nvalid [L]
-    -> [L, max_order + 1] float32.
+    Each lag is summed exactly in int64 (|s| < 2**17, so a product is below
+    2**34 and a frame's sum far below 2**63) and rounded once to float32:
+    a lane's values do not depend on the other lanes of the batch, so a
+    batch cut into shards gives the same bytes (on the card a float32 sum
+    of a row of 131,072 samples or more takes another order when the batch
+    has fewer rows: ``csrc/probes/batch_order.py``). Exact sums against the
+    reference's float32 sums only move the coefficients the
+    Levinson recursion proposes (they travel in the stream, so the round
+    trip stays exact). lanes [L, S] int32, nvalid [L] -> [L, max_order + 1]
+    float32.
     """
     S = lanes.shape[1]
     mask = torch.arange(S, device=lanes.device)[None, :] < nvalid[:, None]
-    x = torch.where(mask, lanes, 0).to(torch.float32)
+    x = torch.where(mask, lanes, 0).to(torch.int64)
     cols = [(x * x).sum(1)]
     for lag in range(1, max_order + 1):
         cols.append((x[:, lag:] * x[:, : S - lag]).sum(1))
-    return torch.stack(cols, dim=1)
+    return torch.stack(cols, dim=1).to(torch.float32)
 
 
 def levinson_device(ac: torch.Tensor, max_order: int):

@@ -222,16 +222,21 @@ def device_analysis(p, nvalid_f, kinds: tuple, cand_orders: tuple):
 
     p: [F, C, S] int32 (or int16) PCM; nvalid_f [F]. Returns (lanes [F*C, S]
     int32, nvalid [F*C] int32, the five candidate tables, mid_side [F]
-    bool). Float32 sums may pick other coefficients or mid/side flags than
-    the exact host analysis; both travel in the stream, so the round trip
-    stays exact and only the size can drift.
+    bool). The sums are exact and rounded once to float32, and the
+    Levinson-Durbin runs in float32, so a lane's result does not depend on
+    the batch around it, but may pick other coefficients or mid/side flags
+    than the exact host analysis; both travel in the stream, so the round
+    trip stays exact and only the size can drift.
     """
     Fr, C, S = p.shape
     p = p.to(torch.int32)
     if C == 2:
-        l, r = p[:, 0].to(torch.float32), p[:, 1].to(torch.float32)
+        # Energies summed exactly in int64, then compared in float32: a
+        # frame's decision does not depend on the other frames of the batch.
+        l, r = p[:, 0].to(torch.int64), p[:, 1].to(torch.int64)
         side = l - r
-        mid_side = (side * side).sum(1) < ((l * l).sum(1) + (r * r).sum(1)) * 0.5
+        energy = lambda v: (v * v).sum(1).to(torch.float32)  # noqa: E731
+        mid_side = energy(side) < (energy(l) + energy(r)) * 0.5
     else:
         mid_side = torch.zeros(Fr, dtype=torch.bool, device=p.device)
     lanes = _lanes_from_pcm16(p, mid_side)

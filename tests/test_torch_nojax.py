@@ -108,6 +108,28 @@ _SCRIPT = textwrap.dedent(
     assert reflo.get_flo_info(made).is_lossy
     with debug.debug_mode():
         assert np.array_equal(flo_torch.decode(streamed, device="cpu"), y)
+
+    # The CLI (encode + decode) and one service round trip, on the CPU.
+    import tempfile, threading, urllib.request
+    from flo_torch import cli, service
+    work = pathlib.Path(tempfile.mkdtemp())
+    (work / "in.wav").write_bytes(wav)
+    assert cli.main(["encode", str(work / "in.wav"), str(work / "o.flo"), "--device", "cpu"]) == 0
+    assert cli.main(["decode", str(work / "o.flo"), str(work / "o.wav"), "--device", "cpu"]) == 0
+    assert np.array_equal(audio_io.read_audio_from_bytes((work / "o.wav").read_bytes())[0], y)
+    srv = service.make_server("127.0.0.1", 0, device="cpu")
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    def post(path, body):
+        req = urllib.request.Request(f"http://127.0.0.1:{srv.server_address[1]}{path}", data=body,
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.read()
+    served = post(f"/v1/encode?sample_rate={rate}&channels=2", x.astype("<f4").tobytes())
+    assert np.array_equal(np.frombuffer(post("/v1/decode", served), "<f4"), y)
+    srv.shutdown()
+    srv.server_close()
+    thread.join(10)
     assert cuda_lpc.LAUNCHES == cuda_psycho.LAUNCHES == 0
     assert sys.modules["jax"] is None
     leaked = [m for m in sys.modules if m.startswith(("jax.", "jaxlib", "flo_tpu"))]
@@ -162,8 +184,20 @@ def test_port_runs_alone_without_the_reference(tmp_path):
     assert "NOJAX-OK" in res.stdout and "ALONE-OK" in res.stdout
 
 
+def test_module_entry_runs_from_a_copy_alone(tmp_path):
+    """``python -m flo_torch --help`` from a copy of flo_torch/ alone."""
+    shutil.copytree(REPO / "flo_torch", tmp_path / "flo_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-m", "flo_torch", "--help"], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("usage: flo-torch") and "serve" in res.stdout
+
+
 _MODULES = ["streaming", "seeking", "reflo", "audio_io", "debug", "flac", "vorbis", "mp3", "aac",
-            "lib", "batch"]
+            "lib", "batch", "cli", "__main__", "service", "demo_page", "parallel.pipeline",
+            "graft_entry"]
 
 
 @pytest.fixture(scope="module")
@@ -171,10 +205,15 @@ def imported_with_jax_blocked():
     """One interpreter with ``jax`` blocked imports each module in turn and
     says after each whether anything of JAX or of the reference got loaded."""
     script = (
-        "import importlib, sys\n"
+        "import contextlib, importlib, io, sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.argv = ['flo-torch', '--help']\n"
         f"for name in {_MODULES!r}:\n"
-        "    importlib.import_module('flo_torch.' + name)\n"
+        "    try:\n"
+        "        with contextlib.redirect_stdout(io.StringIO()):\n"
+        "            importlib.import_module('flo_torch.' + name)\n"
+        "    except SystemExit as e:  # __main__ runs the CLI, and --help exits 0\n"
+        "        assert name == '__main__' and e.code == 0, (name, e.code)\n"
         "    leaked = [m for m in sys.modules if m.startswith(('jax.', 'jaxlib', 'flo_tpu'))]\n"
         "    print('IMPORTED', name, leaked)\n"
     )

@@ -131,6 +131,28 @@ def test_autocorrelation_device_within_float32_order():
     assert (np.abs(got.numpy() - want) <= 1e-5 * want[:, :1]).all()
 
 
+def test_device_analysis_sums_are_exact_and_batch_free():
+    """The device analysis's sums are the exact integer sums rounded once to
+    float32, so a lane's values (and a frame's mid/side flag) are the same
+    whatever batch it is in: a sharded encode gives the unsharded bytes."""
+    lanes, nvalid = _lanes(7, 20, 800)
+    got = lpc.autocorrelation_device(torch.from_numpy(lanes), torch.from_numpy(nvalid), 12)
+    exact = encoder._autocorr_int_exact(lanes, nvalid.astype(np.int64), 12)
+    np.testing.assert_array_equal(got.numpy(), exact.astype(np.float32))
+    halves = [lpc.autocorrelation_device(torch.from_numpy(lanes[i : i + 10]),
+                                         torch.from_numpy(nvalid[i : i + 10]), 12)
+              for i in (0, 10)]
+    assert torch.equal(torch.cat(halves), got)
+    pcm = torch.from_numpy(lanes.reshape(10, 2, 800))
+    nv = torch.from_numpy(nvalid[::2].copy())
+    whole = select.device_analysis(pcm, nv, ("raw", "fixed", "lpc"), (0, 1, 8))
+    parts = [select.device_analysis(pcm[i : i + 5], nv[i : i + 5], ("raw", "fixed", "lpc"),
+                                    (0, 1, 8)) for i in (0, 5)]
+    assert torch.equal(torch.cat([p[-1] for p in parts]), whole[-1])  # mid/side flags
+    for t, *ps in zip(whole[2], *(p[2] for p in parts)):
+        assert torch.equal(torch.cat(ps), t)
+
+
 def test_levinson_device_within_one_step():
     """On well-conditioned lanes (second-order autoregressive noise): a pure
     tone's recursion is near-singular and amplifies the float32 rounding
