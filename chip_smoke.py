@@ -96,10 +96,16 @@ Phases, in order; any failure exits non-zero:
    (within 1.5 i16 steps of unsharded), ``graft_entry.entry()`` on the card,
    ``dryrun_multichip(1)`` and ``dryrun_multichip(2, [cuda:0, cuda:0])``.
    Every request's and command's wall time is printed.
+8. bench_torch.py's quick geometry (2 files x 2 s) in-process on the card,
+   the counters set to 0 before and read after, no plain version on the
+   card: the headline pass and all 21 configs once, every printed line
+   parsed, every gate held (lossless round trips, the quick corpus round
+   trip on its three files, the mesh equal to unsharded, each device
+   config's kernels launched), every kernel launched in the phase.
 
 The line before the last prints the card's name and power limit; before it,
 a JSON object with each kernel's launches (in its main path's run, in
-phase 6 and in phase 7), error,
+phase 6, in phase 7 and in phase 8), error,
 times, bound (the larger of its bytes over the HBM rate and its operations
 over the ALU rate for their type, from this run's inputs) and share of the
 bound; the last line is
@@ -368,9 +374,10 @@ def tensor_bytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def lpc_bound(args):
-    """Reconstruction: residuals and tables in, samples out; a sample takes
-    its lane's taps (a cascade lane one add an order) and a shift and an add."""
+def lpc_work(args):
+    """Reconstruction's (bytes, operations): residuals and tables in,
+    samples out; a sample takes its lane's taps (a cascade lane one add an
+    order) and a shift and an add."""
     from flo_torch.ops import cuda_lpc
 
     res = args[0]
@@ -378,7 +385,11 @@ def lpc_bound(args):
     taps = torch.where(classes < cuda_lpc.CASCADE_CLASSES, classes + 1,
                        2 * (classes - cuda_lpc.CASCADE_CLASSES))
     ops = res.shape[1] * int((taps + 2).sum())
-    return bound(tensor_bytes(*args) + tensor_bytes(res), ops)
+    return tensor_bytes(*args) + tensor_bytes(res), ops
+
+
+def lpc_bound(args):
+    return bound(*lpc_work(args))
 
 
 #: Integer operations a candidate's statistics take a sample: pass 1 |r|,
@@ -386,23 +397,32 @@ def lpc_bound(args):
 STAT_OPS = 8
 
 
-def select_bound(args, outs, is_lpc):
-    """Candidate search: the lanes and tables in, the six outputs out; a
-    valid sample takes every LPC candidate's taps and its shift and
-    subtract, a difference per fixed order past 0, and every candidate's
-    statistics (this run's valid samples, not the padded rows)."""
+def select_work(args, outs, is_lpc):
+    """Candidate search's (bytes, operations): the lanes and tables in, the
+    six outputs out; a valid sample takes every LPC candidate's taps and its
+    shift and subtract, a difference per fixed order past 0, and every
+    candidate's statistics (this run's valid samples, not the padded rows)."""
     orders = args[4][0].tolist()
     nfix = sum(1 for f, o in zip(is_lpc, orders) if not f) - 1
     lpc_taps = sum(o for f, o in zip(is_lpc, orders) if f)
     per_sample = lpc_taps + 2 * sum(is_lpc) + max(nfix - 1, 0) + STAT_OPS * (len(is_lpc) - 1)
     ops = int(args[1].to(torch.int64).sum()) * per_sample
-    return bound(tensor_bytes(*args) + tensor_bytes(*outs), ops)
+    return tensor_bytes(*args) + tensor_bytes(*outs), ops
+
+
+def select_bound(args, outs, is_lpc):
+    return bound(*select_work(args, outs, is_lpc))
+
+
+def pack_work(pargs, packed_bytes: int):
+    """Rice pack's (bytes, operations): the residual rows and lane scalars
+    in, the packed bytes and lane sizes out; bytes bound it (a code is a few
+    operations, counted as none)."""
+    return tensor_bytes(*pargs) + packed_bytes + 16 * pargs[0].shape[0], 0
 
 
 def pack_bound(pargs, packed_bytes: int):
-    """Rice pack: the residual rows and lane scalars in, the packed bytes
-    and lane sizes out; bytes bound it (a code is a few operations)."""
-    return bound(tensor_bytes(*pargs) + packed_bytes + 16 * pargs[0].shape[0], 0)
+    return bound(*pack_work(pargs, packed_bytes))
 
 
 def equal_outputs(got, want, what: str) -> int:
@@ -1609,6 +1629,52 @@ def phase_surfaces(gpu: str, clips, encoded) -> dict:
     return launches
 
 
+def phase_bench(gpu: str) -> dict:
+    """Phase 8: bench_torch.py's quick geometry on the card, in-process;
+    returns each kernel's launches in the phase."""
+    import bench_torch
+
+    mods = kernel_modules()
+    restore, plain_calls = plain_loop_guard()
+    torch.cuda.synchronize()
+    for m in mods.values():
+        m.LAUNCHES = 0
+    printed: list[str] = []
+    t0 = time.perf_counter()
+    try:
+        bench_torch.run(DEVICE, bench_torch.QUICK, emit=lambda obj: printed.append(json.dumps(obj)))
+        check(not plain_calls, f"a plain version ran on the card: {plain_calls}")
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    lines = [json.loads(line) for line in printed]
+    cfgs = {line["config"]: line for line in lines if "config" in line}
+    check(list(cfgs) == list(bench_torch.CONFIGS), f"bench configs {list(cfgs)}")
+    skipped = [name for name, rec in cfgs.items() if "skipped" in rec]
+    check(not skipped, f"bench skipped {skipped}")
+    summary, result = lines[-1], lines[-2]
+    n_corpus = len(bench_torch.QUICK.corpus)
+    check(summary.get("summary") is True
+          and summary["corpus_bit_exact"] == f"{n_corpus}/{n_corpus}"
+          and result["device"]["name"] == torch.cuda.get_device_name(0),
+          f"bench summary {summary}")
+    check(cfgs["mesh_lossless_l5"]["equal_to_unsharded"] is True, "bench mesh != unsharded")
+    for name in ("device_kernels", "device_reconstruct", "device_decode", "device_mdct"):
+        check(cfgs[name]["ms"] > 0 and cfgs[name]["roofline"]["bound_ms"] > 0,
+              f"bench {name}: {cfgs[name]}")
+    launches = {name: m.LAUNCHES for name, m in mods.items()}
+    for name, n in launches.items():
+        check(n > 0, f"phase 8 never launched {name}")
+    log(f"[8 bench] bench_torch --quick on the card: {len(lines)} lines parsed, the headline "
+        f"and {len(cfgs)} configs, corpus {summary['corpus_bit_exact']}, mesh equal to "
+        f"unsharded, device configs "
+        + ", ".join(f"{n} {cfgs[n]['ms']:.4f} ms" for n in
+                    ("device_kernels", "device_reconstruct", "device_decode", "device_mdct"))
+        + f" (quick shapes); {wall:.1f} s; launches {launches}, plain versions on the card 0 "
+        f"[{gpu}]")
+    return launches
+
+
 KERNELS = {
     "lpc_reconstruct": ("flo_torch/csrc/lpc_reconstruct.cu", "flo_tpu/ops/pallas_lpc.py:52"),
     "lossless_select": ("flo_torch/csrc/lossless_select.cu", "flo_tpu/ops/select.py:187"),
@@ -1634,10 +1700,12 @@ def main() -> int:
     launches.update(phase_lossy_path(gpu, clips))
     api_launches = phase_api(gpu, clips[0])
     surface_launches = phase_surfaces(gpu, clips, encoded)
+    bench_launches = phase_bench(gpu)
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "launches_api_phase": api_launches[name],
-         "launches_phase7": surface_launches[name], **measured[name],
+         "launches_phase7": surface_launches[name], "launches_phase8": bench_launches[name],
+         **measured[name],
          "share_of_bound": measured[name]["bound_ms"] / measured[name]["ms"],
          "library_ms": None}
         for name, (src, rep) in KERNELS.items()

@@ -12,7 +12,8 @@ import textwrap
 import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((REPO / "flo_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "flo_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
+                                                            REPO / "bench_torch.py"]
 
 _SCRIPT = textwrap.dedent(
     """
