@@ -790,6 +790,7 @@ def phase_main_path(gpu: str, clips) -> dict:
     """bench.py's headline lossless pass (bench.py:166): bulk encode on the
     card, then bulk decode on the card. Returns each kernel's launches in
     that run, and the encoded files."""
+    from flo_torch import batch
     from flo_torch.container import reader
     from flo_torch.lossless import decoder, encoder
     from flo_torch.ops import cuda_lpc
@@ -852,101 +853,46 @@ def phase_main_path(gpu: str, clips) -> dict:
     log(f"[5 main] decode_many on the card {dec_s:.3f} s = {audio_s / dec_s:.1f}x realtime "
         f"(second call {dec2_s:.3f} s = {audio_s / dec2_s:.1f}x); reconstruct_cuda "
         f"{kernel_ms:.4f} ms = {100 * kernel_ms / 1e3 / dec2_s:.3f}% of the second decode [{gpu}]")
-    log(f"[5 main] encode breakdown (analysis=device): {encode_breakdown(clips, encoded, gpu)}")
-    log(f"[5 main] decode breakdown: {decode_breakdown(encoded, gpu)}")
+    what = "batch.encode_many + batch.decode_many, analyze=False"
+    traced_outs, line = traced(what, lambda: batch.decode_many(batch.encode_many(
+        clips, RATE, CHANNELS, 16, 5, analyze=False, device=DEVICE), device=DEVICE),
+        ENCODE_LEAVES + DECODE_LEAVES, gpu)
+    for i, (clip, out) in enumerate(zip(clips, traced_outs)):
+        check(np.array_equal(out, convert_round_trip(clip)),
+              f"clip {i}: the traced round trip is not bit-exact")
+    log(f"[5 main] {line}; round trip bit-exact")
     return launches, encoded
 
 
-class Laps:
-    """Stage times on the host clock, each stage synchronised to its end."""
-
-    def __init__(self, names):
-        self.stages = dict.fromkeys(names, 0.0)
-        torch.cuda.synchronize()
-        self.last = time.perf_counter()
-
-    def lap(self, name: str) -> None:
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        self.stages[name] += now - self.last
-        self.last = now
-
-    def report(self, gpu: str) -> str:
-        parts = [f"{n} {1e3 * v:.1f} ms" for n, v in self.stages.items()]
-        return ", ".join(parts) + f" (total {1e3 * sum(self.stages.values()):.1f} ms) [{gpu}]"
+# The leaf spans of a bulk encode and decode (flo_torch.tracing); the lossy
+# encode adds encode.sparse_rle.
+ENCODE_LEAVES = ("encode.marshal", "encode.upload", "encode.enqueue", "encode.download",
+                 "encode.assemble", "encode.write")
+DECODE_LEAVES = ("decode.read", "decode.parse", "decode.upload", "decode.enqueue",
+                 "decode.download", "decode.finish")
 
 
-def encode_breakdown(clips, encoded, gpu: str) -> str:
-    """The bulk encode's stages, each synchronised and timed to its end on
-    the host clock, summed over the chunks; the bytes must be encoded's."""
-    from flo_torch.container import writer
-    from flo_torch.lossless import encoder
-    from flo_torch.ops import blockspread, select
+def traced(what: str, fn, leaves, gpu: str):
+    """``fn()`` once with ``flo_torch.tracing`` on; each span named in
+    ``leaves`` must have been recorded. Returns ``fn``'s value and a line of
+    each span's total and self time (ms) and calls, and the counters."""
+    from flo_torch import tracing
 
-    kinds, orders, max_order = encoder._candidate_plan(5)
-    is_lpc = tuple(kd == "lpc" for kd in kinds)
-    laps = Laps(["marshal", "upload", "analysis", "select", "pack", "download",
-                 "assembly+writer"])
-    lap = laps.lap
-
-    lanes, nvalid_f, all_frames, slots = encoder._marshal(clips, CHANNELS, RATE)
-    lap("marshal")
-    frames = []
-    for lo, hi in encoder._chunk_bounds(len(nvalid_f), lanes.size):
-        fs = nvalid_f[lo:hi]
-        pcm, nv = encoder.pcm_to_device(lanes[lo * CHANNELS : hi * CHANNELS], fs, CHANNELS,
-                                        device=DEVICE)
-        lap("upload")
-        lanes_d, nvalid, tables, mid_side = select.device_analysis(pcm, nv, kinds, orders)
-        lap("analysis")
-        sel, k, size, res, win_c, win_s = select.encode_select_best(lanes_d, nvalid, *tables,
-                                                                    is_lpc)
-        lap("select")
-        packed = blockspread.pack_best(res, k, nvalid, sel == 0,
-                                       max_words=encoder._max_words(fs, CHANNELS),
-                                       size_hint=size)
-        lap("pack")
-        host = encoder._download_chunk(
-            {"out": (sel, k, size, *packed, win_c, win_s), "mid_side": mid_side,
-             "frame_samples": fs}, CHANNELS)
-        lap("download")
-        frames.extend(encoder._assemble_frames(host, CHANNELS, kinds, orders, max_order))
-        lap("assembly+writer")
-    for (fidx, fi), frame in zip(slots, frames):
-        all_frames[fidx][fi] = frame
-    out = [writer.write(RATE, CHANNELS, 16, 5, f, b"") for f in all_frames]
-    lap("assembly+writer")
-    check(out == encoded, "the staged encode's bytes differ from encode_many's")
-    return laps.report(gpu)
-
-
-def decode_breakdown(encoded, gpu: str) -> str:
-    """The bulk decode's stages, each timed to its end on the host clock."""
-    from flo_torch.container import reader
-    from flo_torch.lossless import decoder
-
-    stamps = [time.perf_counter()]
-    flos = [reader.read(b) for b in encoded]
-    stamps.append(time.perf_counter())
-    marshaled = [(i, decoder._marshal_lanes(f)) for i, f in enumerate(flos)]
-    group = decoder._concat_group(marshaled)
-    stamps.append(time.perf_counter())
-    lanes = decoder.lanes_to_device(*group, device=DEVICE)
     torch.cuda.synchronize()
-    stamps.append(time.perf_counter())
-    fsc = decoder._device_decode(*lanes, channels=CHANNELS)
-    torch.cuda.synchronize()
-    stamps.append(time.perf_counter())
-    host = fsc.cpu().numpy()
-    stamps.append(time.perf_counter())
-    f0 = 0
-    for _, m in marshaled:
-        np.concatenate([host[f0 + k, :n].reshape(-1) for k, n in enumerate(m[7])])
-        f0 += len(m[7])
-    stamps.append(time.perf_counter())
-    names = ["parse", "marshal+rice", "upload", "device", "download", "trim"]
-    parts = [f"{n} {1e3 * (b - a):.1f} ms" for n, a, b in zip(names, stamps, stamps[1:])]
-    return ", ".join(parts) + f" [{gpu}]"
+    tracing.take()
+    tracing.enable()
+    try:
+        out = fn()
+    finally:
+        tracing.disable()
+    summary = tracing.summary()
+    tracing.take()
+    missing = [name for name in leaves if name not in summary["spans"]]
+    check(not missing, f"{what}: no {missing} span recorded")
+    parts = [f"{name} {d['total_ms']:.1f}/{d['self_ms']:.1f} ms x{d['calls']}"
+             for name, d in summary["spans"].items()]
+    return out, (f"{what}: spans (total/self ms, calls) {', '.join(parts)}; counters "
+                 f"{summary['counters']} [{gpu}]")
 
 
 LOSSY_QUALITY = 1  # the medium preset, as bench.py's headline pass
@@ -1076,8 +1022,19 @@ def phase_lossy_path(gpu: str, clips) -> dict:
     log(f"[5 lossy] batch.decode_many on the card {dec_s:.3f} s = {audio_s / dec_s:.1f}x "
         f"realtime (second call {dec2_s:.3f} s = {audio_s / dec2_s:.1f}x); peak device memory "
         f"of the lossy phase {peak_mb:.1f} MB [{gpu}]")
-    log(f"[5 lossy] encode breakdown: {lossy_encode_breakdown(clips, bare, gpu)}")
-    log(f"[5 lossy] decode breakdown: {lossy_decode_breakdown(bare, outs, gpu)}")
+
+    def traced_round_trip():
+        data = batch.encode_lossy_many(clips, RATE, CHANNELS, quality=LOSSY_QUALITY,
+                                       transport_dtype="packed", device=DEVICE)
+        return data, batch.decode_many(data, device=DEVICE)
+
+    (traced_data, traced_outs), line = traced(
+        f"batch.encode_lossy_many (quality {LOSSY_QUALITY}, packed) + batch.decode_many",
+        traced_round_trip, ENCODE_LEAVES + ("encode.sparse_rle",) + DECODE_LEAVES, gpu)
+    check(traced_data == encoded, "the traced lossy encode's bytes differ from the untraced")
+    for i, (a, b) in enumerate(zip(traced_outs, outs)):
+        within_one_step(a, b, f"lossy clip {i}: traced decode against the untraced")
+    log(f"[5 lossy] {line}; bytes equal to the untraced encode's, decode within one i16 step")
     return launches
 
 
@@ -1284,81 +1241,6 @@ def phase_api(gpu: str, clip: np.ndarray) -> dict:
     for name, s in laps.items():
         log(f"[6 api] {name}: {s:.3f} s = {SECONDS / s:.1f}x realtime [{gpu}]")
     return launches
-
-
-def lossy_encode_breakdown(clips, encoded, gpu: str) -> str:
-    """The bulk lossy encode's stages, summed over the two chunks; the
-    files must have lossy.encoder.encode_many's sizes (1%)."""
-    from flo_torch.container import writer
-    from flo_torch.lossy import encoder as lenc
-    from flo_torch.lossy.presets import QUALITY_U8_TO_F32
-    from flo_torch.ops import compact, mdct, psycho
-
-    thr = lenc.smr_threshold(QUALITY_U8_TO_F32[LOSSY_QUALITY])
-    laps = Laps(["marshal", "upload", "MDCT", "SMR", "quantize", "compact+size read",
-                 "download", "sparse RLE", "assembly+writer"])
-    stacked, hops = lenc._marshal(clips, CHANNELS, "packed")
-    laps.lap("marshal")
-    parts = []
-    for lo, hi in lenc._chunk_bounds(len(hops), CHANNELS):
-        pcm = torch.from_numpy(stacked[lo:hi]).to(DEVICE)
-        laps.lap("upload")
-        coeffs = mdct.forward(lenc._blocks(pcm), lenc.BLOCK, lenc.WINDOW)
-        laps.lap("MDCT")
-        smr = psycho.smr(coeffs, RATE, lenc.BLOCK)
-        laps.lap("SMR")
-        q, sf = lenc._quantize_gated(coeffs, smr, RATE, thr)
-        laps.lap("quantize")
-        entries, row_nnz = compact.compact_nonzeros(q.reshape(-1, q.shape[-1]))
-        laps.lap("compact+size read")
-        parts.append((entries.cpu().numpy(), row_nnz.cpu().numpy(), sf.cpu().numpy()))
-        laps.lap("download")
-    t_max = max(hops)
-    flat, dense = lenc._sparse_streams(parts, t_max)
-    laps.lap("sparse RLE")
-    sf = np.concatenate([p[2] for p in parts])
-    out = [writer.write(RATE, CHANNELS, 16, 5, frames, b"", lossy=True, lossy_quality=LOSSY_QUALITY)
-           for frames in lenc._assemble_files(flat, dense, sf, hops, CHANNELS, t_max)]
-    laps.lap("assembly+writer")
-    for i, (a, b) in enumerate(zip(out, encoded)):
-        check(abs(len(a) - len(b)) <= 0.01 * len(b), f"staged lossy encode, clip {i}: "
-              f"{len(a)} bytes against encode_many's {len(b)}")
-    nnz = sum(len(p[0]) for p in parts)
-    return (f"{laps.report(gpu)}; {nnz} nonzeros of {stacked.shape[0] * t_max * 1024} "
-            f"coefficients, staged bytes {'equal to' if out == encoded else 'not equal to'} "
-            "encode_many's")
-
-
-def lossy_decode_breakdown(encoded, outs, gpu: str) -> str:
-    """The bulk lossy decode's stages, summed over the two chunks; the
-    samples must be decode_many's (one i16 step)."""
-    from flo_torch.container import reader
-    from flo_torch.lossy import decoder as ldec
-    from flo_torch.ops import compact
-
-    laps = Laps(["parse", "sparse parse", "upload", "expand", "dequantize+IMDCT+overlap-add",
-                 "download", "scale+interleave"])
-    flos = [reader.read(b) for b in encoded]
-    n, C, rate, counts, sf, streams = ldec._parse_batch(flos)
-    laps.lap("parse")
-    entries_all, stream_nnz = ldec._sparse_entries(streams, n // 2)
-    laps.lap("sparse parse")
-    got = [None] * len(flos)
-    for lo, entries, row_nnz, sf_c in ldec._chunks(counts, C, sf, entries_all, stream_nnz):
-        e, g, s = ldec.to_device(entries, row_nnz, sf_c, device=DEVICE)
-        laps.lap("upload")
-        N, T = s.shape[:2]
-        q = compact.expand_nonzeros(e, g, N * T * C, n // 2).reshape(N, T, C, n // 2)
-        laps.lap("expand")
-        pcm = ldec._to_i16(ldec._decode_blocks(q, s, rate, n))
-        laps.lap("dequantize+IMDCT+overlap-add")
-        host = pcm.cpu().numpy()
-        laps.lap("download")
-        ldec._finish_chunk(host, lo, lo + len(host), counts, got)
-        laps.lap("scale+interleave")
-    for i, (a, b) in enumerate(zip(got, outs)):
-        within_one_step(a, b, f"staged lossy decode, clip {i}")
-    return laps.report(gpu)
 
 
 def quiet(fn, *args):

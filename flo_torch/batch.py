@@ -12,7 +12,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from . import debug
+from . import debug, tracing
 from .container import reader, writer
 from .core.analysis_batch import analyze_many
 from .futures import BulkFuture
@@ -69,19 +69,29 @@ def encode_many_async(
     meanwhile, and its metadata reaches the container writer at collect
     time."""
     level = min(int(compression_level), 9)
-    fut = _lossless_encoder.encode_many_to_frames_async(
-        samples_list, sample_rate, channels, level, "device", device=device
-    )
-    get_metas = _analyzed_metas_async(samples_list, sample_rate, channels, metadata_list, analyze)
+    n = len(samples_list)
+    with tracing.span("encode.dispatch", mode="lossless", files=n) as sp:
+        if sp:
+            sp.add(samples=sum(map(np.size, samples_list)))
+        fut = _lossless_encoder.encode_many_to_frames_async(
+            samples_list, sample_rate, channels, level, "device", device=device
+        )
+        get_metas = _analyzed_metas_async(samples_list, sample_rate, channels, metadata_list,
+                                          analyze)
 
-    def fin(frames_per_file):
-        metas = get_metas() or [b""] * len(samples_list)
-        return [
-            writer.write(int(sample_rate), int(channels), int(bit_depth), level, frames, meta)
-            for frames, meta in zip(frames_per_file, metas)
-        ]
+        def fin(frames_per_file):
+            metas = get_metas() or [b""] * n
+            with tracing.span("encode.write", files=n) as sp:
+                out = [
+                    writer.write(int(sample_rate), int(channels), int(bit_depth), level, frames,
+                                 meta)
+                    for frames, meta in zip(frames_per_file, metas)
+                ]
+                if sp:
+                    sp.add(bytes=sum(map(len, out)))
+            return out
 
-    return fut.then(fin)
+        return fut.then(fin, "encode.collect", mode="lossless", files=n)
 
 
 def encode_many(
@@ -122,23 +132,32 @@ def encode_lossy_many_async(
     (see :func:`encode_many_async`); metadata lands in the writer at collect
     time."""
     q_u8 = min(int(quality), 4)
-    fut = _lossy_encoder.encode_many_to_frames_async(
-        samples_list, sample_rate, channels, QUALITY_U8_TO_F32[q_u8], transport_dtype,
-        device=device,
-    )
-    get_metas = _analyzed_metas_async(samples_list, sample_rate, channels, metadata_list, analyze)
+    n = len(samples_list)
+    with tracing.span("encode.dispatch", mode="lossy", files=n) as sp:
+        if sp:
+            sp.add(samples=sum(map(np.size, samples_list)))
+        fut = _lossy_encoder.encode_many_to_frames_async(
+            samples_list, sample_rate, channels, QUALITY_U8_TO_F32[q_u8], transport_dtype,
+            device=device,
+        )
+        get_metas = _analyzed_metas_async(samples_list, sample_rate, channels, metadata_list,
+                                          analyze)
 
-    def fin(frames_per_file):
-        metas = get_metas() or [b""] * len(samples_list)
-        return [
-            writer.write(
-                int(sample_rate), int(channels), 16, 5, frames, meta,
-                lossy=True, lossy_quality=q_u8,
-            )
-            for frames, meta in zip(frames_per_file, metas)
-        ]
+        def fin(frames_per_file):
+            metas = get_metas() or [b""] * n
+            with tracing.span("encode.write", files=n) as sp:
+                out = [
+                    writer.write(
+                        int(sample_rate), int(channels), 16, 5, frames, meta,
+                        lossy=True, lossy_quality=q_u8,
+                    )
+                    for frames, meta in zip(frames_per_file, metas)
+                ]
+                if sp:
+                    sp.add(bytes=sum(map(len, out)))
+            return out
 
-    return fut.then(fin)
+        return fut.then(fin, "encode.collect", mode="lossy", files=n)
 
 
 def encode_lossy_many(
@@ -164,30 +183,34 @@ def decode_many_async(datas: Sequence[bytes], *, device="cuda") -> BulkFuture:
     batches (each one dispatched device pass; lossy files grouped by rate
     and channels); ``result()`` gives one interleaved float32 array per
     file, in input order."""
-    flos = [reader.read(d) for d in datas]
-    outs: List[np.ndarray] = [np.zeros(0, np.float32)] * len(flos)
-    lossless = [i for i, flo in enumerate(flos) if not is_transform(flo)]
-    groups: dict = {}  # lossy bulk needs one rate and channel count a batch
-    for i, flo in enumerate(flos):
-        if is_transform(flo):
-            groups.setdefault((flo.header.sample_rate, flo.header.channels), []).append(i)
-    pending = []  # (indices, future)
-    if lossless:
-        pending.append((lossless, _lossless_decoder.decode_many_async(
-            [flos[i] for i in lossless], device=device)))
-    for idxs in groups.values():
-        pending.append((idxs, _lossy_decoder.decode_many_async(
-            [flos[i] for i in idxs], device=device)))
+    with tracing.span("decode.dispatch", files=len(datas)):
+        with tracing.span("decode.read") as sp:
+            if sp:
+                sp.add(bytes=sum(map(len, datas)))
+            flos = [reader.read(d) for d in datas]
+        outs: List[np.ndarray] = [np.zeros(0, np.float32)] * len(flos)
+        lossless = [i for i, flo in enumerate(flos) if not is_transform(flo)]
+        groups: dict = {}  # lossy bulk needs one rate and channel count a batch
+        for i, flo in enumerate(flos):
+            if is_transform(flo):
+                groups.setdefault((flo.header.sample_rate, flo.header.channels), []).append(i)
+        pending = []  # (indices, future)
+        if lossless:
+            pending.append((lossless, _lossless_decoder.decode_many_async(
+                [flos[i] for i in lossless], device=device)))
+        for idxs in groups.values():
+            pending.append((idxs, _lossy_decoder.decode_many_async(
+                [flos[i] for i in idxs], device=device)))
 
-    def fin() -> List[np.ndarray]:
-        for idxs, fut in pending:
-            for i, out in zip(idxs, fut.result()):
-                if debug.debug_enabled():
-                    debug.check_finite(f"decode_many, file {i}", out)
-                outs[i] = out
-        return outs
+        def fin() -> List[np.ndarray]:
+            for idxs, fut in pending:
+                for i, out in zip(idxs, fut.result()):
+                    if debug.debug_enabled():
+                        debug.check_finite(f"decode_many, file {i}", out)
+                    outs[i] = out
+            return outs
 
-    return BulkFuture(fin)
+        return BulkFuture(fin, "decode.collect", files=len(flos))
 
 
 def decode_many(datas: Sequence[bytes], *, device="cuda") -> List[np.ndarray]:

@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import native
+from .. import native, tracing
 from ..container import reader
 from ..core import rice_host
 from ..core.constants import FIXED_PREDICTOR_MARKER, FrameType
@@ -171,30 +171,38 @@ def decode_many_async(flos: list[FloFile], *, device="cuda", mesh=None) -> BulkF
     mesh = pipeline.active_mesh(mesh) or pipeline.Mesh((device,))
     outs: list[np.ndarray] = [np.zeros(0, dtype=np.float32)] * len(flos)
     by_channels: dict[int, list] = {}
-    for i, f in enumerate(flos):
-        m = _marshal_lanes(f)
-        if m is not None:
-            by_channels.setdefault(f.header.channels, []).append((i, m))
+    with tracing.span("decode.parse", mode="lossless"):
+        for i, f in enumerate(flos):
+            m = _marshal_lanes(f)
+            if m is not None:
+                by_channels.setdefault(f.header.channels, []).append((i, m))
 
     pending = []
     for channels, group in by_channels.items():
-        arrays = _concat_group(group)
-        lanes = pipeline.shard_batch(mesh, *arrays[:5], unit=channels)
-        mid_side = pipeline.put_batch(arrays[5], mesh)
-        pending.append((group, pipeline.decode_step(*lanes, mid_side, channels=channels)))
+        with tracing.span("decode.parse", mode="lossless") as sp:
+            arrays = _concat_group(group)
+            if sp:
+                sp.add(frames=len(arrays[5]))
+        with tracing.span("decode.upload"):
+            lanes = pipeline.shard_batch(mesh, *arrays[:5], unit=channels)
+            mid_side = pipeline.put_batch(arrays[5], mesh)
+        with tracing.span("decode.enqueue", lanes=len(arrays[0])):
+            pending.append((group, pipeline.decode_step(*lanes, mid_side, channels=channels)))
 
     def collect():
         for group, shards in pending:
-            hosts = [fsc.cpu().numpy() for fsc in shards]  # [F_i, S, C], equal F_i
-            per = hosts[0].shape[0]
-            f0 = 0
-            for i, m in group:
-                frame_lengths = m[7]
-                outs[i] = np.concatenate([
-                    hosts[(f0 + k) // per][(f0 + k) % per, :n].reshape(-1)
-                    for k, n in enumerate(frame_lengths)
-                ])
-                f0 += len(frame_lengths)
+            with tracing.span("decode.download"):
+                hosts = [fsc.cpu().numpy() for fsc in shards]  # [F_i, S, C], equal F_i
+            with tracing.span("decode.finish"):
+                per = hosts[0].shape[0]
+                f0 = 0
+                for i, m in group:
+                    frame_lengths = m[7]
+                    outs[i] = np.concatenate([
+                        hosts[(f0 + k) // per][(f0 + k) % per, :n].reshape(-1)
+                        for k, n in enumerate(frame_lengths)
+                    ])
+                    f0 += len(frame_lengths)
         return outs
 
     return BulkFuture(collect)

@@ -35,7 +35,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from .. import native
+from .. import native, tracing
 from ..container import writer
 from ..core import rice_host
 from ..core.constants import (
@@ -211,7 +211,10 @@ def encode_many_to_frames_async(
     if analysis not in ("exact", "device"):
         raise ValueError(f"analysis must be 'exact' or 'device', got {analysis!r}")
     kinds, cand_orders, max_order = _candidate_plan(compression_level)
-    lanes_batch, nvalid_f, all_frames, active_slots = _marshal(samples_list, C, spf)
+    with tracing.span("encode.marshal") as sp:
+        lanes_batch, nvalid_f, all_frames, active_slots = _marshal(samples_list, C, spf)
+        if sp:
+            sp.add(frames=sum(map(len, all_frames)), active_frames=len(active_slots))
     if not active_slots:
         return BulkFuture(lambda: all_frames)
     chunks = _dispatch_active_frames(
@@ -352,24 +355,26 @@ def _dispatch_chunk(lanes_in, frame_samples, C, kinds, cand_orders, analysis="ex
     """Host analysis (if any), uploads, and the device candidate search and
     pack of the winners (Rice streams; raw winners as LE16) of one
     sub-batch, dispatched without waiting on the device."""
-    pcm, nvalid_f = pcm_to_device(lanes_in, frame_samples, C, device=device)
-    if analysis == "device":
-        *search, mid_side = select._select_device_core(pcm, nvalid_f, kinds, cand_orders)
-    else:
-        mid_side, tables = host_analysis(lanes_in, frame_samples, C, kinds, cand_orders)
-        lanes = select._lanes_from_pcm16(pcm, torch.from_numpy(mid_side).to(device))
-        search = select.encode_select_best(
-            lanes, nvalid_f.repeat_interleave(C), *tables_to_device(*tables, device=device),
-            tuple(kd == "lpc" for kd in kinds),
+    with tracing.span("encode.upload"):
+        pcm, nvalid_f = pcm_to_device(lanes_in, frame_samples, C, device=device)
+    with tracing.span("encode.enqueue", lanes=lanes_in.shape[0]):
+        if analysis == "device":
+            *search, mid_side = select._select_device_core(pcm, nvalid_f, kinds, cand_orders)
+        else:
+            mid_side, tables = host_analysis(lanes_in, frame_samples, C, kinds, cand_orders)
+            lanes = select._lanes_from_pcm16(pcm, torch.from_numpy(mid_side).to(device))
+            search = select.encode_select_best(
+                lanes, nvalid_f.repeat_interleave(C), *tables_to_device(*tables, device=device),
+                tuple(kd == "lpc" for kd in kinds),
+            )
+        sel, k, size, residuals, win_c, win_shift = search
+        # The search's exact sizes place the lanes, so the pack reads the
+        # residuals once; its own byte counts are checked against them in
+        # _download_chunk.
+        packed = blockspread.pack_best(
+            residuals, k, nvalid_f.repeat_interleave(C), sel == 0,
+            max_words=_max_words(frame_samples, C), size_hint=size,
         )
-    sel, k, size, residuals, win_c, win_shift = search
-    # The search's exact sizes place the lanes, so the pack reads the
-    # residuals once; its own byte counts are checked against them in
-    # _download_chunk.
-    packed = blockspread.pack_best(
-        residuals, k, nvalid_f.repeat_interleave(C), sel == 0,
-        max_words=_max_words(frame_samples, C), size_hint=size,
-    )
     return {
         "out": (sel, k, size, *packed, win_c, win_shift),
         "mid_side": mid_side,
@@ -480,7 +485,10 @@ def _assemble_frames(host: dict, C, kinds, cand_orders, max_order, compat: str =
 
 def _collect_chunk(st, C, kinds, cand_orders, max_order, compat: str = "fixed"):
     """Download one sub-batch's results and assemble its frames."""
-    return _assemble_frames(_download_chunk(st, C), C, kinds, cand_orders, max_order, compat)
+    with tracing.span("encode.download"):
+        host = _download_chunk(st, C)
+    with tracing.span("encode.assemble", frames=len(host["frame_samples"])):
+        return _assemble_frames(host, C, kinds, cand_orders, max_order, compat)
 
 
 def encode_to_frames(

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import native
+from .. import native, tracing
 from ..container import reader
 from ..core.types import FloFile
 from ..futures import BulkFuture
@@ -251,26 +251,34 @@ def decode_many_async(flos: list[FloFile], *, device="cuda", mesh=None) -> BulkF
     into one shard a device. Without one, ``device`` is a mesh of one shard.
     """
     mesh = pipeline.active_mesh(mesh) or pipeline.Mesh((device,))
-    batch = _parse_batch(flos)
-    if batch is None:
-        return BulkFuture(lambda: [np.zeros(0, dtype=np.float32) for _ in flos])
-    n, C, rate, counts, sf, all_streams = batch
-    # Sparse upload: 4 bytes per nonzero coefficient instead of the dense
-    # i16 grid.
-    entries_all, stream_nnz = _sparse_entries(all_streams, n // 2)
-    handles = [
-        (lo, lo + sf_c.shape[0], [
-            _decode_blocks_packed(*to_device(e, g, s, device=d), rate, n)
-            for e, g, s, d in _shard_files(entries, row_nnz, sf_c, mesh)
-        ])
-        for lo, entries, row_nnz, sf_c in _chunks(counts, C, sf, entries_all, stream_nnz)
-    ]
+    with tracing.span("decode.parse", mode="lossy") as sp:
+        batch = _parse_batch(flos)
+        if batch is None:
+            return BulkFuture(lambda: [np.zeros(0, dtype=np.float32) for _ in flos])
+        n, C, rate, counts, sf, all_streams = batch
+        # Sparse upload: 4 bytes per nonzero coefficient instead of the dense
+        # i16 grid.
+        entries_all, stream_nnz = _sparse_entries(all_streams, n // 2)
+        if sp:
+            sp.add(frames=int(counts.sum()), nonzeros=len(entries_all))
+    handles = []
+    for lo, entries, row_nnz, sf_c in _chunks(counts, C, sf, entries_all, stream_nnz):
+        shards = []
+        for e, g, s, d in _shard_files(entries, row_nnz, sf_c, mesh):
+            with tracing.span("decode.upload"):
+                up = to_device(e, g, s, device=d)
+            with tracing.span("decode.enqueue", files=s.shape[0]):
+                shards.append(_decode_blocks_packed(*up, rate, n))
+        handles.append((lo, lo + sf_c.shape[0], shards))
 
     def fin() -> list[np.ndarray]:
         outs = [None] * len(flos)
         for lo, hi, shards in handles:
             for pcm in shards:
-                _finish_chunk(pcm.cpu().numpy(), lo, hi, counts, outs)
+                with tracing.span("decode.download"):
+                    host = pcm.cpu().numpy()
+                with tracing.span("decode.finish"):
+                    _finish_chunk(host, lo, hi, counts, outs)
                 lo += pcm.shape[0]
         return outs
 

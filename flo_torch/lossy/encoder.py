@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import native
+from .. import native, tracing
 from ..container import writer
 from ..core.constants import FrameType
 from ..core.types import ChannelData, Frame
@@ -247,8 +247,15 @@ def _assemble_files(flat, q, sf, hops, C: int, t_max: int) -> list[list[Frame]]:
 
 def _pack_frames(ent_parts, hops, C: int, t_max: int) -> list[list[Frame]]:
     """The chunks' (entries, row_nnz, sf) -> every file's frames."""
-    sf = np.concatenate([sf for _, _, sf in ent_parts])
-    return _assemble_files(*_sparse_streams(ent_parts, t_max), sf, hops, C, t_max)
+    with tracing.span("encode.sparse_rle") as sp:
+        if sp:
+            sp.add(nonzeros=sum(len(e) for e, _, _ in ent_parts))
+        flat, q = _sparse_streams(ent_parts, t_max)
+    with tracing.span("encode.assemble") as sp:
+        if sp:
+            sp.add(frames=sum(hops))
+        sf = np.concatenate([sf for _, _, sf in ent_parts])
+        return _assemble_files(flat, q, sf, hops, C, t_max)
 
 
 def encode_many_to_frames_async(
@@ -274,19 +281,27 @@ def encode_many_to_frames_async(
     """
     mesh = pipeline.active_mesh(mesh) or pipeline.Mesh((device,))
     C = int(channels)
-    stacked, hops = _marshal(samples_list, C, transport_dtype)
+    with tracing.span("encode.marshal") as sp:
+        stacked, hops = _marshal(samples_list, C, transport_dtype)
+        if sp:
+            sp.add(frames=sum(hops))
     t_max = max(hops, default=0)
     if t_max == 0:
         return BulkFuture(lambda: [[] for _ in samples_list])
     thr = smr_threshold(quality)
-    handles = [
-        ([_encode_padded(p, int(sample_rate), thr) for p in pipeline.put_batch(stacked[lo:hi], mesh)],
-         hi - lo)
-        for lo, hi in _chunk_bounds(len(hops), C)
-    ]
+    handles = []
+    for lo, hi in _chunk_bounds(len(hops), C):
+        with tracing.span("encode.upload"):
+            shards = pipeline.put_batch(stacked[lo:hi], mesh)
+        with tracing.span("encode.enqueue", lanes=hi - lo):
+            handles.append(([_encode_padded(p, int(sample_rate), thr) for p in shards], hi - lo))
 
     def fin() -> list[list[Frame]]:
-        return _pack_frames([_download_chunk(*h) for h in handles], hops, C, t_max)
+        parts = []
+        for h in handles:
+            with tracing.span("encode.download"):
+                parts.append(_download_chunk(*h))
+        return _pack_frames(parts, hops, C, t_max)
 
     return BulkFuture(fin)
 
